@@ -1,0 +1,51 @@
+"""Parameters of the JAX package (as numpy arrays) → port state, and back.
+
+The JAX package is never imported here: a caller turns a JAX GmmDiag,
+TvModel, EmStats or BwStats into numpy (``np.asarray`` on each field) and
+passes the arrays in, so both packages compute from identical values.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .fa.stats import BwStats
+from .fa.tv import TvModel
+from .gmm.kernels import EmStats
+from .gmm.model import GmmDiag
+
+
+def _t(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+
+def gmm_from_numpy(weights, means, cov_inv, device=None) -> GmmDiag:
+    return GmmDiag(_t(weights, device), _t(means, device),
+                   _t(cov_inv, device))
+
+
+def tv_from_numpy(t, ubm_means, ubm_inv_var, device=None) -> TvModel:
+    return TvModel(_t(t, device), _t(ubm_means, device),
+                   _t(ubm_inv_var, device))
+
+
+def em_stats_from_numpy(n, sum_x, sum_xx, llk, count,
+                        device=None) -> EmStats:
+    return EmStats(_t(n, device), _t(sum_x, device), _t(sum_xx, device),
+                   _t(llk, device), _t(count, device))
+
+
+def bw_stats_from_numpy(n, f, device=None) -> BwStats:
+    return BwStats(_t(n, device), _t(f, device))
+
+
+def to_numpy(obj) -> dict[str, np.ndarray]:
+    """Fields of a GmmDiag / TvModel / EmStats / BwStats as numpy arrays,
+    keyed by the field names both packages share."""
+    if not isinstance(obj, (GmmDiag, TvModel, EmStats, BwStats)):
+        raise TypeError(f"to_numpy: unsupported {type(obj).__name__}")
+    return {f.name: getattr(obj, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(obj)}

@@ -1,0 +1,119 @@
+"""Baum-Welch sufficient statistics (N, F) per utterance (port of
+lia_ral_tpu/fa/stats.py).
+
+Reference ``computeAndAccumulateTVStat`` (AccumulateTVStat.cpp:281-351).
+Utterances are processed as padded (S, T, D) batches with (S, T) masks.
+For CUDA tensors the batch goes through kernel K2
+(``gmm.cuda_kernels.bw_stats_fused``); for CPU tensors through its plain
+version.  Saving and loading stats come with the port's io modules.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..gmm.cuda_kernels import bw_stats_fused, bw_stats_reference, check_tier
+from ..gmm.kernels import llk_and_posteriors
+from ..gmm.model import GmmDiag
+from ..utils.shapes import bucket_len, next_pow2
+
+
+@dataclasses.dataclass(frozen=True)
+class BwStats:
+    """Zero- and first-order Baum-Welch stats per utterance.
+
+    n: (S, K) occupancy; f: (S, K, D) raw first-order sums (centering by
+    the UBM mean happens in the consumer, as the reference's substractM).
+    """
+
+    n: torch.Tensor
+    f: torch.Tensor
+
+    @property
+    def n_utts(self) -> int:
+        return self.n.shape[0]
+
+    def merge(self, other: "BwStats") -> "BwStats":
+        """Concatenate along the utterance axis."""
+        return BwStats(n=torch.cat([self.n, other.n]),
+                       f=torch.cat([self.f, other.f]))
+
+    def centered(self, ubm_means: torch.Tensor) -> torch.Tensor:
+        """F̄ = F − N·m (reference substractM, AccumulateTVStat.cpp:1078)."""
+        return self.f - self.n[..., None] * ubm_means[None, :, :]
+
+    def normalized(self, ubm_means: torch.Tensor,
+                   ubm_inv_var: torch.Tensor) -> torch.Tensor:
+        """F̄·sqrt(Σ⁻¹) (reference normStatistics, cpp:1215)."""
+        return self.centered(ubm_means) * torch.sqrt(ubm_inv_var)[None]
+
+    def to(self, device) -> "BwStats":
+        return BwStats(n=self.n.to(device), f=self.f.to(device))
+
+
+def accumulate_bw_stats(x: torch.Tensor, w: torch.Tensor, gmm: GmmDiag
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stats of ONE utterance: x (T,D), w (T,) → (n (K,), f (K,D))."""
+    _, post = llk_and_posteriors(x, gmm)
+    pw = post * w[:, None]
+    return torch.sum(pw, dim=0), pw.T @ x
+
+
+def bw_stats_batch(x: torch.Tensor, mask: torch.Tensor, gmm: GmmDiag,
+                   use_fused: bool | None = None,
+                   stats_pass: str = "x3") -> BwStats:
+    """Stats of a padded utterance batch: x (S,T,D), mask (S,T).
+
+    ``use_fused=None`` picks kernel K2 for a CUDA tensor and the plain
+    version for a CPU one; ``use_fused=False`` asks for the plain version
+    on any device."""
+    check_tier(None, stats_pass)
+    if use_fused is None:
+        use_fused = x.device.type == "cuda"
+    if use_fused:
+        n, f, _ = bw_stats_fused(x, mask, gmm, stats_pass=stats_pass)
+    else:
+        n, f, _ = bw_stats_reference(x, mask, gmm)
+    return BwStats(n=n, f=f)
+
+
+def bw_stats_bucketed(entries, gmm: GmmDiag, bucket: int = 2048,
+                      batch_size: int = 64,
+                      stats_pass: str = "x3") -> BwStats:
+    """Stats of ragged utterances via length-bucketed padded batches.
+
+    entries: list of (x (T_i,D) ndarray, mask (T_i,) ndarray).  Each
+    utterance is padded to a multiple of ``bucket`` frames and grouped
+    with same-padded-length peers into (batch, T, D) ``bw_stats_batch``
+    calls on the GMM's device; the batch axis is padded to a power of two
+    with zero-weight utterances.  Row order == input order.
+    """
+    if not entries:
+        raise ValueError("bw_stats_bucketed: no readable sessions "
+                         "(every utterance of the list failed to load)")
+    d = gmm.dim
+    rows_n: list = [None] * len(entries)
+    rows_f: list = [None] * len(entries)
+    by_len: dict[int, list[int]] = {}
+    for i, (x, _) in enumerate(entries):
+        by_len.setdefault(bucket_len(x.shape[0], bucket), []).append(i)
+    for plen, idxs in by_len.items():
+        for s0 in range(0, len(idxs), batch_size):
+            grp = idxs[s0:s0 + batch_size]
+            b_pad = next_pow2(len(grp))
+            xs = np.zeros((b_pad, plen, d), np.float32)
+            ms = np.zeros((b_pad, plen), np.float32)
+            for j, i in enumerate(grp):
+                x, m = entries[i]
+                xs[j, :x.shape[0]] = x
+                ms[j, :m.shape[0]] = m
+            st = bw_stats_batch(torch.from_numpy(xs).to(gmm.device),
+                                torch.from_numpy(ms).to(gmm.device), gmm,
+                                stats_pass=stats_pass)
+            for j, i in enumerate(grp):
+                rows_n[i] = st.n[j]
+                rows_f[i] = st.f[j]
+    return BwStats(n=torch.stack(rows_n), f=torch.stack(rows_f))

@@ -1,0 +1,85 @@
+"""GmmDiag: the diagonal-covariance GMM (port of lia_ral_tpu/gmm/model.py).
+
+Three dense tensors — ``weights (K,)``, ``means (K,D)``, ``cov_inv (K,D)``
+(inverse variances) — with the log-space constants derived on demand.
+File IO comes with the port's io modules.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+
+@dataclasses.dataclass(frozen=True)
+class GmmDiag:
+    """weights[K], means[K,D], cov_inv[K,D] (inverse variances)."""
+
+    weights: torch.Tensor
+    means: torch.Tensor
+    cov_inv: torch.Tensor
+
+    @property
+    def n_components(self) -> int:
+        return self.means.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.means.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.means.device
+
+    @property
+    def cov(self) -> torch.Tensor:
+        return 1.0 / self.cov_inv
+
+    def log_const(self) -> torch.Tensor:
+        """Per-component log of the Gaussian normaliser:
+        log cst_k = -0.5·(D·log2π − Σ_d log covInv_kd)."""
+        return -0.5 * (self.dim * _LOG_2PI
+                       - torch.sum(torch.log(self.cov_inv), dim=-1))
+
+    def log_weights(self) -> torch.Tensor:
+        return torch.log(self.weights)
+
+    def replace(self, **changes) -> "GmmDiag":
+        return dataclasses.replace(self, **changes)
+
+    def to(self, device) -> "GmmDiag":
+        return GmmDiag(self.weights.to(device), self.means.to(device),
+                       self.cov_inv.to(device))
+
+    def astype(self, dtype) -> "GmmDiag":
+        return GmmDiag(self.weights.to(dtype), self.means.to(dtype),
+                       self.cov_inv.to(dtype))
+
+    # -- constructors -------------------------------------------------------
+    @classmethod
+    def create(cls, weights, means, cov_inv, dtype=torch.float32,
+               device=None) -> "GmmDiag":
+        return cls(weights=torch.as_tensor(weights, dtype=dtype,
+                                           device=device),
+                   means=torch.as_tensor(means, dtype=dtype, device=device),
+                   cov_inv=torch.as_tensor(cov_inv, dtype=dtype,
+                                           device=device))
+
+    @classmethod
+    def from_cov(cls, weights, means, cov, dtype=torch.float32,
+                 device=None) -> "GmmDiag":
+        cov = torch.as_tensor(cov, dtype=dtype, device=device)
+        return cls.create(weights, means, 1.0 / cov, dtype, device)
+
+    @classmethod
+    def uniform_init(cls, k: int, d: int, dtype=torch.float32,
+                     device=None) -> "GmmDiag":
+        """Unit-variance zero-mean equal-weight init (ALIZE fresh MixtureGD)."""
+        return cls(weights=torch.full((k,), 1.0 / k, dtype=dtype,
+                                      device=device),
+                   means=torch.zeros((k, d), dtype=dtype, device=device),
+                   cov_inv=torch.ones((k, d), dtype=dtype, device=device))

@@ -1,0 +1,107 @@
+"""The CUDA kernels K1 (em_stats_fused) and K2 (bw_stats_fused) of the
+PyTorch port against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips where torch sees no CUDA
+device.  This file imports neither jax nor the JAX package, so it also
+runs on a GPU machine without them:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+(``--noconftest``: tests/conftest.py sets up JAX's CPU platform.)
+
+Tolerances: the JAX suite's CPU budgets (tests/test_pallas_kernel.py
+:35-46) with the atol scaled by the array's max — n rtol 1e-4, atol
+1e-4·max n; sums rtol 1e-3, atol 1e-3·max|·| — since K=2048 sums over
+tens of thousands of frames are O(10³); llk rel 1e-5.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lia_ral_tpu_torch.convert import gmm_from_numpy
+from lia_ral_tpu_torch.gmm import cuda_kernels as ck
+from lia_ral_tpu_torch.gmm.kernels import EmStats
+
+from _torch_parity import cuda_device, np_of, random_gmm_np
+
+pytestmark = pytest.mark.cuda
+
+
+def _gmm(seed, k, d, device):
+    return gmm_from_numpy(*random_gmm_np(np.random.default_rng(seed), k, d),
+                          device=device)
+
+
+def _close(got, want, rtol):
+    got, want = np_of(got), np_of(want)
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=rtol * float(np.max(np.abs(want))))
+
+
+@pytest.mark.parametrize("n,k,d,chunk", [(65536, 2048, 39, 8192),
+                                         (1000, 37, 13, 256),
+                                         (777, 64, 60, 100)])
+def test_k1_cuda_matches_plain(cuda_device, n, k, d, chunk):
+    rng = np.random.default_rng(5)
+    tg = _gmm(1, k, d, cuda_device)
+    x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32))
+    w = rng.random(n).astype(np.float32)
+    w[rng.random(n) < 0.05] = 0.0
+    xt, wt = x.to(cuda_device), torch.from_numpy(w).to(cuda_device)
+    before = ck.launch_counts["em_stats_fused"]
+    got = ck.em_stats_fused(xt, wt, tg, chunk=chunk)
+    torch.cuda.synchronize()
+    assert isinstance(got, EmStats)
+    assert ck.launch_counts["em_stats_fused"] == before + 1
+    want = ck.em_stats_reference(xt, wt, tg)
+    _close(got.n, want.n, 1e-4)
+    _close(got.sum_x, want.sum_x, 1e-3)
+    _close(got.sum_xx, want.sum_xx, 1e-3)
+    np.testing.assert_allclose(float(got.llk), float(want.llk), rtol=1e-5)
+    np.testing.assert_allclose(float(got.count), float(want.count),
+                               rtol=1e-6)
+    # fixed-order reduction, no atomics: a rerun reproduces every digit
+    again = ck.em_stats_fused(xt, wt, tg, chunk=chunk)
+    for a, b in zip((again.n, again.sum_x, again.sum_xx, again.llk),
+                    (got.n, got.sum_x, got.sum_xx, got.llk)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("s,t,k,d", [(8, 2000, 2048, 39), (5, 2060, 64, 39),
+                                     (7, 61, 100, 13)])
+def test_k2_cuda_matches_plain(cuda_device, s, t, k, d):
+    rng = np.random.default_rng(6)
+    tg = _gmm(2, k, d, cuda_device)
+    x = rng.standard_normal((s, t, d), dtype=np.float32)
+    mask = (rng.random((s, t)) < 0.7).astype(np.float32)
+    mask[-1] = 0.0                       # an all-zero-weight utterance
+    xt = torch.from_numpy(x).to(cuda_device)
+    mt = torch.from_numpy(mask).to(cuda_device)
+    before = ck.launch_counts["bw_stats_fused"]
+    n, f, llk = ck.bw_stats_fused(xt, mt, tg)
+    torch.cuda.synchronize()
+    assert ck.launch_counts["bw_stats_fused"] == before + 1
+    rn, rf, rl = ck.bw_stats_reference(xt, mt, tg)
+    _close(n, rn, 1e-4)
+    _close(f, rf, 1e-3)
+    np.testing.assert_allclose(np_of(llk), np_of(rl), rtol=1e-5)
+    assert torch.all(n[-1] == 0) and torch.all(f[-1] == 0)
+    assert float(llk[-1]) == 0.0
+
+
+def test_cuda_wrappers_reject_bad_inputs(cuda_device):
+    tg = _gmm(3, 8, 5, cuda_device)
+    x = torch.zeros((16, 5), device=cuda_device)
+    w = torch.ones(16, device=cuda_device)
+    with pytest.raises(TypeError):
+        ck.em_stats_fused(x.double(), w, tg)
+    with pytest.raises(ValueError):
+        ck.em_stats_fused(x.t().contiguous().t(), w, tg)   # not contiguous
+    with pytest.raises(ValueError):
+        ck.em_stats_fused(x, w.cpu(), tg)                  # mixed devices
+    with pytest.raises(ValueError):
+        ck.bw_stats_fused(x, w, tg)                        # not (S,T,D)
+    with pytest.raises(ValueError):
+        ck.em_stats_fused(torch.zeros((16, 65), device=cuda_device), w,
+                          _gmm(3, 8, 65, cuda_device))     # D above 64
