@@ -9,31 +9,57 @@ printed as it ends; any failure raises and the exit code is non-zero:
 
 1. device   the card's name and power limit (nvidia-smi), torch and CUDA
 2. build    nvcc builds the kernels of csrc/ into the ignored build dir
-3. K1       em_stats_fused against its plain version, K=2048, D=39,
-            65,536 frames, ~5 % zero-weight frames
-4. K2       bw_stats_fused against its plain version, K=2048, D=39,
-            S=64 × T=2000, plus T=2060 and T=61, ragged masks
-5. slice    the main path at full width on a synthetic corpus (1M frames
-            = 10,000 audio-s, 500 utterances × 2000 frames, 50 speakers):
-            mixture_init → train_model (K=2048, 3 EM iterations) →
-            bw_stats_batch → init_t (R=400) → estimate_w (PCG) →
-            cosine_scores → eer.  Checks finite outputs, meanLLK
+3. K1       em_stats_fused in every tier (default, fastStats, fastMath,
+            both) against its plain version, K=2048, D=39, 65,536
+            frames, ~5 % zero-weight frames; a rerun reproduces every
+            digit
+4. K2       bw_stats_fused in every tier against its plain version,
+            K=2048, D=39, S=64 × T=2000, plus T=2060 and T=61, ragged
+            masks and an all-zero utterance
+5. slice    the library path at full width on a synthetic corpus (1M
+            frames = 10,000 audio-s, 500 utterances × 2000 frames, 50
+            speakers): mixture_init → train_model (K=2048, 3 EM
+            iterations) → bw_stats_batch → init_t (R=400) → estimate_w
+            (PCG) → cosine_scores → eer.  Checks finite outputs, meanLLK
             non-decreasing within 1e-3 nats/frame, both kernels launched,
             and the i-vectors of a rerun through the plain stats paths
             from the same init within 1e-3·max|w|.
-6. timing   each kernel and its plain version at the slice's shapes,
-            CUDA events, median of 3 after warm-up
+6. cli      the same corpus as 500 SPRO4 files with .lbl files, through
+            ``python -m lia_ral_tpu_torch`` entry points in-process:
+            TrainWorld (3 EM iterations) → TotalVariability (R=400, 2
+            iterations) → IvExtractor (PCG) → IvTest (cosine, 50 models
+            of 5 sessions × 250 test segments = 12,500 trials), once in
+            the default tier and once with fastStats=true; then
+            TrainWorld alone with fastMath=true, and with both keys (no
+            tool passes fastMath to K2).  Checks the score files,
+            meanLLK, the tier kernels' launch counts (each run's own,
+            counted from 0), and that the final UBMs agree in meanLLK
+            with the default chain's within 1e-2 (fastStats) and 5e-2
+            (fastMath).  Times each tool (host clock) and the kernels
+            inside it (CUDA events around each wrapper call).
+7. timing   each kernel, in every tier, and its plain version at the
+            slice's shapes (1M frames; K2 as 500 × 2000), CUDA events,
+            median of 3 after warm-up; the last outputs of each pair are
+            held against each other as in phases 3 and 4
 
-The line before the last is one JSON object of per-kernel results; the
-last line is {"ok": true, "device": {...}}.
+The line before the last is one JSON object of per-kernel results
+(``launches`` from the main paths of phase 6; ``check_launches`` from
+the comparisons of phases 3, 4 and 7); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -41,6 +67,7 @@ import torch
 
 import lia_ral_tpu_torch  # noqa: F401  (numerics pin: TF32 off)
 from lia_ral_tpu_torch import _build
+from lia_ral_tpu_torch.__main__ import main as cli
 from lia_ral_tpu_torch.backend.eval import eer
 from lia_ral_tpu_torch.backend.scoring import cosine_scores
 from lia_ral_tpu_torch.convert import gmm_from_numpy
@@ -50,12 +77,35 @@ from lia_ral_tpu_torch.gmm import cuda_kernels as ck
 from lia_ral_tpu_torch.gmm.em import (TrainCfg, default_stats_fn,
                                       mixture_init, train_model)
 from lia_ral_tpu_torch.gmm.kernels import em_stats_chunked
+from lia_ral_tpu_torch.gmm.model import GmmDiag
+from lia_ral_tpu_torch.io.features import write_feature_file
+from lia_ral_tpu_torch.io.labels import (frame_mask_to_segments,
+                                         write_label_file)
+from lia_ral_tpu_torch.io.lists import write_xlist
+from lia_ral_tpu_torch.io.nist import read_nist_scores
 
 K, D, R = 2048, 39, 400
 N_SPK, UTT_PER_SPK, T_UTT = 50, 10, 2000
 SOURCE = "lia_ral_tpu_torch/csrc/gmm_stats.cu"
 REPLACES = {"em_stats_fused": "lia_ral_tpu/gmm/pallas_kernels.py:314",
             "bw_stats_fused": "lia_ral_tpu/gmm/pallas_kernels.py:476"}
+# tier name → (compute_dtype, stats_pass), as the wrappers take them
+TIERS = {"": (None, "x3"), "fastStats": (None, "bf16nx"),
+         "fastMath": (torch.bfloat16, "x3"),
+         "fastMath+fastStats": (torch.bfloat16, "bf16nx")}
+
+
+def entry(kernel: str, tier: str) -> str:
+    """The launch-count key (and JSON name) of a kernel in a tier."""
+    return f"{kernel}[{tier}]" if tier else kernel
+
+
+def sum_rtol(tier: str) -> float:
+    """S/F budget: 2e-3·max for the bf16 stats of fastStats (a rounding
+    of p or xa·s flips on f32-level logit differences), else the
+    default 1e-3 (fastMath rounds at the same points as its plain
+    version)."""
+    return 2e-3 if "fastStats" in tier else 1e-3
 
 
 def check(ok: bool, what: str) -> None:
@@ -152,6 +202,154 @@ def run_slice(x, mask, init, tv_t, fused: bool):
     return ubm, bw, w, cosine_scores(models, tests), target, llks
 
 
+def check_rounding(name, got, tier_plain, default_plain) -> None:
+    """A tier's kernel must sit much closer to its own plain version than
+    to the default tier's, in mean |error|: a kernel rounding at other
+    points would not.  (Mean, not max: a bf16 rounding that flips on an
+    f32-level difference moves one element by a whole bf16 ulp, but such
+    flips are rare.)"""
+    own = float((got - tier_plain).abs().mean())
+    other = float((got - default_plain).abs().mean())
+    print(f"  {name}: mean|err| vs its tier {own:.3e}, vs default tier "
+          f"{other:.3e}")
+    check(own < 0.5 * other, f"{name} rounds where its plain version rounds")
+
+
+def write_corpus(d, x, lens):
+    """The slice's utterances as SPRO4 files with .lbl files dropping the
+    ragged tail, plus the chain's lists.  Returns the list paths."""
+    names = []
+    for i in range(x.shape[0]):
+        name = f"spk{i // UTT_PER_SPK:02d}_u{i % UTT_PER_SPK}"
+        write_feature_file(os.path.join(d, name + ".prm"), x[i], fmt="SPRO4")
+        m = np.arange(x.shape[1]) < lens[i]
+        write_label_file(os.path.join(d, name + ".lbl"),
+                         frame_mask_to_segments(m))
+        names.append(name)
+    half = UTT_PER_SPK // 2
+    models = [(f"spk{s:02d}_model", names[s * UTT_PER_SPK:
+                                         s * UTT_PER_SPK + half])
+              for s in range(N_SPK)]
+    tests = [n for s in range(N_SPK)
+             for n in names[s * UTT_PER_SPK + half:(s + 1) * UTT_PER_SPK]]
+    lists = {"world": os.path.join(d, "world.lst"),
+             "all": os.path.join(d, "all.ndx"),
+             "targets": os.path.join(d, "targets.ndx"),
+             "trials": os.path.join(d, "trials.ndx")}
+    write_xlist(lists["world"], [[n] for n in names])
+    write_xlist(lists["all"], [[n] for n in names])
+    write_xlist(lists["targets"], [[m] + fs for m, fs in models])
+    write_xlist(lists["trials"], [[t] + [m for m, _ in models]
+                                  for t in tests])
+    return lists
+
+
+CHAIN = ("TrainWorld", "TotalVariability", "IvExtractor", "IvTest")
+
+
+@contextlib.contextmanager
+def kernel_device_ms(totals):
+    """Adds to totals[kernel] the device time of each K1/K2 wrapper call
+    the tools make inside the block: CUDA events recorded just before and
+    after the call, on the stream the kernels launch on (so the span also
+    holds the wrapper's few small parameter ops).  The wrappers are
+    wrapped where the tools' modules look them up."""
+    from lia_ral_tpu_torch.fa import stats as tstats
+    from lia_ral_tpu_torch.gmm import em as tem
+
+    spans = []
+    orig = {(tem, "em_stats_fused"): tem.em_stats_fused,
+            (tstats, "bw_stats_fused"): tstats.bw_stats_fused}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans.append((name, start, end))
+            return out
+        return call
+
+    for (mod, name), fn in orig.items():
+        setattr(mod, name, timed(name, fn))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in orig.items():
+            setattr(mod, name, fn)
+        torch.cuda.synchronize()
+        for name, start, end in spans:
+            totals[name] = totals.get(name, 0.0) + start.elapsed_time(end)
+
+
+def run_cli_chain(d, lists, tier, device="cuda", tools=CHAIN):
+    """TrainWorld → TotalVariability → IvExtractor → IvTest (or the
+    first ``tools``) through the port's CLI entry, with the tier's config
+    keys, outputs under d/<tier>.  Returns the meanLLK per EM iteration
+    (from TrainWorld's verbose lines), the wall time of each tool (host
+    clock, ending in a device synchronise), the device ms of each kernel
+    inside the tools and the scores (when IvTest ran)."""
+    out = os.path.join(d, tier or "default")
+    os.makedirs(out)
+    common = ["--torchDevice", device, "--featureFilesPath", d + "/",
+              "--labelFilesPath", d + "/", "--mixtureFilesPath", out + "/",
+              "--matrixFilesPath", out + "/",
+              "--saveVectorFilesPath", out + "/",
+              "--loadVectorFilesPath", out + "/",
+              "--loadFeatureFileFormat", "SPRO4",
+              "--labelSelectedFrames", "speech",
+              "--fastStats", "true" if "fastStats" in tier else "false",
+              "--fastMath", "true" if "fastMath" in tier else "false"]
+    steps = [
+        ("TrainWorld", ["--inputFeatureFilename", lists["world"],
+                        "--mixtureDistribCount", str(K), "--nbTrainIt", "3",
+                        "--baggedFrameProbability", "1.0",
+                        "--initVarianceFlooring", "0.5",
+                        "--finalVarianceFlooring", "0.1",
+                        "--initVarianceCeiling", "10.0",
+                        "--finalVarianceCeiling", "10.0",
+                        "--randomSeed", "0", "--outputWorldFilename", "wld",
+                        "--verbose", "true"]),
+        ("TotalVariability", ["--ndxFilename", lists["all"],
+                              "--inputWorldFilename", "wld",
+                              "--totalVariabilityNumber", str(R),
+                              "--nbIt", "2", "--initScale", "0.01",
+                              "--totalVariabilityMatrix", "TV",
+                              "--meanEstimate", "TVmean"]),
+        ("IvExtractor", ["--ndxFilename", lists["all"],
+                         "--inputWorldFilename", "wld",
+                         "--totalVariabilityMatrix", "TV",
+                         "--meanEstimate", "TVmean", "--ivSolver", "pcg"]),
+        ("IvTest", ["--targetIdList", lists["targets"],
+                    "--ndxFilename", lists["trials"], "--scoring", "cosine",
+                    "--outputFilename", os.path.join(out, "scores.nist")]),
+    ]
+    walls, llks, kernel_ms = {}, [], {}
+    for tool, args in steps:
+        if tool not in tools:
+            continue
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        timer = (kernel_device_ms(kernel_ms) if device == "cuda"
+                 else contextlib.nullcontext())
+        with contextlib.redirect_stdout(buf), timer:
+            rc = cli([tool] + common + args)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        walls[tool] = time.perf_counter() - t1
+        check(rc == 0, f"{tool} exit code {rc}")
+        if tool == "TrainWorld":
+            llks = [float(v) for v in
+                    re.findall(r"^it \d+: meanLLK=(\S+)", buf.getvalue(),
+                               re.M)]
+    scores = (read_nist_scores(os.path.join(out, "scores.nist"))
+              if "IvTest" in tools else None)
+    return {"llks": llks, "walls": walls, "kernel_ms": kernel_ms,
+            "scores": scores}
+
+
 def cuda_ms(fn) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -162,16 +360,25 @@ def cuda_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def timed_pair(kernel_fn, plain_fn) -> tuple[float, float]:
+def timed_pair(kernel_fn, plain_fn):
     """Median of 3 CUDA-event timings each, after one warm-up call each,
-    in turns (plain, kernel, kernel, plain, ...)."""
+    in turns (plain, kernel, kernel, plain, ...).  Returns (kernel ms,
+    plain ms, the kernel's last output, the plain version's last
+    output)."""
+    last = {}
+
+    def keep(fn, key):
+        return lambda: last.__setitem__(key, fn())
+
+    kernel_fn, plain_fn = keep(kernel_fn, "kernel"), keep(plain_fn, "plain")
     kernel_fn(), plain_fn()
     ks, ps = [], []
     for i in range(3):
         order = ((plain_fn, ps), (kernel_fn, ks))
         for fn, out in (order if i % 2 == 0 else order[::-1]):
             out.append(cuda_ms(fn))
-    return statistics.median(ks), statistics.median(ps)
+    return (statistics.median(ks), statistics.median(ps), last["kernel"],
+            last["plain"])
 
 
 def main() -> int:
@@ -189,8 +396,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
     print(smi[0])
-    name = torch.cuda.get_device_name(0)
-    print(f"device: {name}; torch {torch.__version__}, "
+    device_name = torch.cuda.get_device_name(0)
+    print(f"device: {device_name}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; count {torch.cuda.device_count()}")
     phase("device", t0)
 
@@ -203,10 +410,11 @@ def main() -> int:
     phase("build", t0)
 
     rng = np.random.default_rng(0)
-    kernels = {n: {"name": n, "route": "cuda", "source": SOURCE,
-                   "replaces": REPLACES[n]} for n in REPLACES}
+    kernels = {entry(k, tier): {"name": entry(k, tier), "route": "cuda",
+                                "source": SOURCE, "replaces": REPLACES[k]}
+               for k in REPLACES for tier in TIERS}
 
-    # 3. K1 vs its plain version
+    # 3. K1 vs its plain version, every tier
     t0 = time.perf_counter()
     gmm = random_gmm(rng, K, D, dev)
     n = 65536
@@ -215,35 +423,66 @@ def main() -> int:
     w = rng.random(n).astype(np.float32)
     w[rng.random(n) < 0.05] = 0.0
     w = torch.from_numpy(w).to(dev)
-    got = ck.em_stats_fused(x, w, gmm)
-    torch.cuda.synchronize()
-    want = ck.em_stats_reference(x, w, gmm)
-    err = check_stats("K1", [("n", got.n, want.n, 1e-4),
-                             ("sum_x", got.sum_x, want.sum_x, 1e-3),
-                             ("sum_xx", got.sum_xx, want.sum_xx, 1e-3)],
-                      (got.llk[None], want.llk[None]))
-    check(abs(float(got.count) - float(want.count))
-          <= 1e-6 * float(want.count), "K1 count")
-    kernels["em_stats_fused"]["max_abs_err"] = err
+    default_plain = ck.em_stats_reference(x, w, gmm)
+    for tier, (cdt, sp) in TIERS.items():
+        ename = entry("em_stats_fused", tier)
+        got = ck.em_stats_fused(x, w, gmm, compute_dtype=cdt, stats_pass=sp)
+        torch.cuda.synchronize()
+        want = ck.em_stats_reference(x, w, gmm, compute_dtype=cdt,
+                                     stats_pass=sp)
+        rs = sum_rtol(tier)
+        err = check_stats(f"K1 {ename}",
+                          [("n", got.n, want.n, 1e-4),
+                           ("sum_x", got.sum_x, want.sum_x, rs),
+                           ("sum_xx", got.sum_xx, want.sum_xx, rs)],
+                          (got.llk[None], want.llk[None]))
+        check(abs(float(got.count) - float(want.count))
+              <= 1e-6 * float(want.count), f"K1 {ename} count")
+        if tier:
+            check_rounding(f"K1 {ename}", got.sum_x, want.sum_x,
+                           default_plain.sum_x)
+        again = ck.em_stats_fused(x, w, gmm, compute_dtype=cdt,
+                                  stats_pass=sp)
+        check(all(torch.equal(a, b) for a, b in zip(
+            (again.n, again.sum_x, again.sum_xx, again.llk),
+            (got.n, got.sum_x, got.sum_xx, got.llk))),
+            f"K1 {ename} rerun reproduces every digit")
+        kernels[ename]["max_abs_err"] = err
     phase("K1 vs plain", t0)
 
-    # 4. K2 vs its plain version
+    # 4. K2 vs its plain version, every tier
     t0 = time.perf_counter()
-    worst = 0.0
+    worst = {tier: 0.0 for tier in TIERS}
     for s, t in ((64, 2000), (8, 2060), (16, 61)):
         xs = torch.from_numpy(rng.standard_normal((s, t, D),
                                                   dtype=np.float32)).to(dev)
         ms = ragged_mask(rng, s, t, dev)
-        n_k, f_k, l_k = ck.bw_stats_fused(xs, ms, gmm)
-        torch.cuda.synchronize()
-        n_p, f_p, l_p = ck.bw_stats_reference(xs, ms, gmm)
-        worst = max(worst, check_stats(
-            f"K2 S={s} T={t}", [("n", n_k, n_p, 1e-4), ("f", f_k, f_p, 1e-3)],
-            (l_k, l_p)))
-        check(bool((n_k[-1] == 0).all() and (f_k[-1] == 0).all()),
-              "K2 all-zero-weight utterance gives n = f = 0")
-    kernels["bw_stats_fused"]["max_abs_err"] = worst
-    del xs, ms, x, w
+        f_default = ck.bw_stats_reference(xs, ms, gmm)[1]
+        for tier, (cdt, sp) in TIERS.items():
+            ename = entry("bw_stats_fused", tier)
+            n_k, f_k, l_k = ck.bw_stats_fused(xs, ms, gmm, compute_dtype=cdt,
+                                              stats_pass=sp)
+            torch.cuda.synchronize()
+            n_p, f_p, l_p = ck.bw_stats_reference(xs, ms, gmm,
+                                                  compute_dtype=cdt,
+                                                  stats_pass=sp)
+            worst[tier] = max(worst[tier], check_stats(
+                f"K2 {ename} S={s} T={t}",
+                [("n", n_k, n_p, 1e-4), ("f", f_k, f_p, sum_rtol(tier))],
+                (l_k, l_p)))
+            check(bool((n_k[-1] == 0).all() and (f_k[-1] == 0).all()),
+                  f"K2 {ename}: all-zero-weight utterance gives n = f = 0")
+            if tier:
+                check_rounding(f"K2 {ename} S={s} T={t}", f_k, f_p, f_default)
+            n2, f2, l2 = ck.bw_stats_fused(xs, ms, gmm, compute_dtype=cdt,
+                                           stats_pass=sp)
+            check(torch.equal(n2, n_k) and torch.equal(f2, f_k)
+                  and torch.equal(l2, l_k),
+                  f"K2 {ename} rerun reproduces every digit")
+    for tier in TIERS:
+        kernels[entry("bw_stats_fused", tier)]["max_abs_err"] = worst[tier]
+    check_launches = dict(ck.launch_counts)
+    del xs, ms, x, w, f_default, default_plain
     phase("K2 vs plain", t0)
 
     # 5. the slice at full width
@@ -275,7 +514,6 @@ def main() -> int:
     check(wv.shape == (N_SPK * UTT_PER_SPK, R), "i-vector shape")
     for kname in REPLACES:
         check(launches[kname] > 0, f"{kname} launched in the slice")
-        kernels[kname]["launches"] = launches[kname]
     sc = scores.cpu().numpy()
     tg = target.cpu().numpy()
     print(f"  cosine EER {100 * eer(sc[tg], sc[~tg]):.2f} % over "
@@ -288,24 +526,167 @@ def main() -> int:
     check(dw <= 1e-3 * wmax, "kernel and plain i-vectors agree")
     phase("slice", t0)
 
-    # 6. timing at the slice's shapes
+    # 6. the CLI chain at full width, default tier and fastStats
     t0 = time.perf_counter()
+    lens = mask.sum(1).to(torch.int64).cpu().numpy()
+    xu_np = xu.cpu().numpy()
+    workdir = tempfile.mkdtemp(prefix="lia_chip_smoke_")
+    try:
+        lists = write_corpus(workdir, xu_np, lens)
+        chains = {}
+        for tier in ("", "fastStats"):
+            ck.reset_launch_counts()
+            chains[tier] = run_cli_chain(workdir, lists, tier)
+            chains[tier]["launches"] = dict(ck.launch_counts)
+        # the fastMath key reaches K1 through TrainWorld only (no tool
+        # passes it to K2): TrainWorld alone in both fastMath tiers
+        fm_runs = {}
+        for tier in ("fastMath", "fastMath+fastStats"):
+            ck.reset_launch_counts()
+            fm_runs[tier] = run_cli_chain(workdir, lists, tier,
+                                          tools=("TrainWorld",))
+            fm_runs[tier]["launches"] = dict(ck.launch_counts)
+
+        def final_llk(label, res):
+            """The chain UBM's corpus meanLLK (default-tier plain stats),
+            after the per-iteration meanLLK are checked non-decreasing."""
+            chain_ubm = GmmDiag.load(os.path.join(workdir, label, "wld.gmm"),
+                                     device=dev)
+            v = float(ck.em_stats_reference(
+                xu.reshape(-1, D), mask.reshape(-1), chain_ubm).mean_llk())
+            llks = res["llks"] + [v]
+            print(f"  chain [{label}]: meanLLK per EM iteration (last = "
+                  "final UBM): " + ", ".join(f"{u:.5f}" for u in llks))
+            check(len(res["llks"]) == 3, f"{label}: 3 EM iterations seen")
+            for a, b in zip(llks, llks[1:]):
+                check(b >= a - 1e-3, f"{label} meanLLK decreased: {llks}")
+            wall = sum(res["walls"].values())
+            kms = res["kernel_ms"]
+            print(f"  chain [{label}]: tool wall s " + ", ".join(
+                f"{k} {u:.3f}" for k, u in res["walls"].items())
+                + "; kernel device ms " + ", ".join(
+                f"{k} {u:.2f}" for k, u in kms.items())
+                + f" ({100 * sum(kms.values()) / 1e3 / wall:.2f} % of "
+                f"{wall:.3f} s)")
+            return v
+
+        final = {}
+        for tier, res in chains.items():
+            label = tier or "default"
+            launches = res["launches"]
+            print(f"  chain [{label}]: launches {launches}")
+            for kname in REPLACES:
+                key = entry(kname, tier)
+                check(launches[key] > 0, f"{key} launched in the {label} "
+                      "chain")
+                kernels[key]["launches"] = launches[key]
+                if tier:
+                    check(launches[kname] == 0,
+                          f"default {kname} not launched in the {label} "
+                          "chain")
+            scores = res["scores"]
+            check(len(scores) == N_SPK * N_SPK * (UTT_PER_SPK // 2),
+                  f"{label} score file has 12,500 lines")
+            sc = np.array([r.score for r in scores])
+            check(bool(np.isfinite(sc).all()), f"{label} scores finite")
+            tgt = np.array([r.model.split("_")[0] == r.seg.split("_")[0]
+                            for r in scores])
+            print(f"  chain [{label}]: cosine EER "
+                  f"{100 * eer(sc[tgt], sc[~tgt]):.2f} % over {tgt.sum()} "
+                  f"target / {(~tgt).sum()} impostor trials")
+            final[tier] = final_llk(label, res)
+        for tier, res in fm_runs.items():
+            launches = res["launches"]
+            key = entry("em_stats_fused", tier)
+            print(f"  TrainWorld [{tier}]: launches {launches}")
+            check(launches[key] > 0, f"{key} launched by TrainWorld")
+            check(all(v == 0 for k, v in launches.items() if k != key),
+                  f"only {key} launched by TrainWorld [{tier}]")
+            kernels[key]["launches"] = launches[key]
+            final[tier] = final_llk(tier, res)
+            # bf16 logits move occupancies by percents (the JAX suite's
+            # own fastMath EM budget is 5e-3 at toy size)
+            dl = abs(final[tier] - final[""])
+            print(f"  final UBM meanLLK {tier} {final[tier]:.7f} (|diff| to "
+                  f"default {dl:.2e})")
+            check(dl <= 5e-2, f"{tier} and default final UBM meanLLK within "
+                  "5e-2 nats/frame")
+        for tier in fm_runs:        # no tool passes fastMath to K2
+            kernels[entry("bw_stats_fused", tier)]["launches"] = 0
+        dl = abs(final[""] - final["fastStats"])
+        print(f"  final UBM meanLLK default {final['']:.7f}, fastStats "
+              f"{final['fastStats']:.7f} (|diff| {dl:.2e})")
+        ubms = [GmmDiag.load(os.path.join(workdir, t or "default",
+                                          "wld.gmm")) for t in chains]
+        print("  default vs fastStats UBM: max|diff| " + ", ".join(
+            f"{f} {float((getattr(ubms[0], f) - getattr(ubms[1], f)).abs().max()):.3e}"
+            for f in ("weights", "means", "cov_inv")))
+        check(dl <= 1e-2, "default and fastStats chains' final UBM meanLLK "
+              "within 1e-2 nats/frame")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    phase("cli", t0)
+
+    # 7. timing at the slice's shapes, every tier; the timed calls' last
+    # outputs are held against each other at these shapes too
+    t0 = time.perf_counter()
+    ck.reset_launch_counts()
     xf, wf = xu.reshape(-1, D), mask.reshape(-1)
-    k_ms, p_ms = timed_pair(lambda: ck.em_stats_fused(xf, wf, ubm),
-                            lambda: ck.em_stats_reference(xf, wf, ubm))
-    kernels["em_stats_fused"].update(ms=k_ms, plain_ms=p_ms)
-    k_ms, p_ms = timed_pair(lambda: ck.bw_stats_fused(xu, mask, ubm),
-                            lambda: ck.bw_stats_reference(xu, mask, ubm))
-    kernels["bw_stats_fused"].update(ms=k_ms, plain_ms=p_ms)
+    default_plain = {}
+    for tier, (cdt, sp) in TIERS.items():
+        ename = entry("em_stats_fused", tier)
+        k_ms, p_ms, got, want = timed_pair(
+            lambda: ck.em_stats_fused(xf, wf, ubm, compute_dtype=cdt,
+                                      stats_pass=sp),
+            lambda: ck.em_stats_reference(xf, wf, ubm, compute_dtype=cdt,
+                                          stats_pass=sp))
+        kernels[ename].update(ms=k_ms, plain_ms=p_ms)
+        rs = sum_rtol(tier)
+        err = check_stats(f"K1 {ename} N={xf.shape[0]}",
+                          [("n", got.n, want.n, 1e-4),
+                           ("sum_x", got.sum_x, want.sum_x, rs),
+                           ("sum_xx", got.sum_xx, want.sum_xx, rs)],
+                          (got.llk[None], want.llk[None]))
+        check(abs(float(got.count) - float(want.count))
+              <= 1e-6 * float(want.count), f"K1 {ename} count")
+        if tier:
+            check_rounding(f"K1 {ename} N={xf.shape[0]}", got.sum_x,
+                           want.sum_x, default_plain["K1"])
+        else:
+            default_plain["K1"] = want.sum_x
+        kernels[ename]["max_abs_err"] = max(kernels[ename]["max_abs_err"],
+                                            err)
+        ename = entry("bw_stats_fused", tier)
+        k_ms, p_ms, (n_k, f_k, l_k), (n_p, f_p, l_p) = timed_pair(
+            lambda: ck.bw_stats_fused(xu, mask, ubm, compute_dtype=cdt,
+                                      stats_pass=sp),
+            lambda: ck.bw_stats_reference(xu, mask, ubm, compute_dtype=cdt,
+                                          stats_pass=sp))
+        kernels[ename].update(ms=k_ms, plain_ms=p_ms)
+        label = f"K2 {ename} S={xu.shape[0]} T={xu.shape[1]}"
+        err = check_stats(label, [("n", n_k, n_p, 1e-4),
+                                  ("f", f_k, f_p, sum_rtol(tier))],
+                          (l_k, l_p))
+        if tier:
+            check_rounding(label, f_k, f_p, default_plain["K2"])
+        else:
+            default_plain["K2"] = f_p
+        kernels[ename]["max_abs_err"] = max(kernels[ename]["max_abs_err"],
+                                            err)
+        del got, want, n_k, f_k, l_k, n_p, f_p, l_p
     for kname, kv in kernels.items():
+        # launches made to hold a kernel against its plain version
+        # (phases 3, 4 and 7), apart from the main paths' "launches"
+        kv["check_launches"] = (check_launches[kname]
+                                + ck.launch_counts[kname])
         print(f"  {kname}: kernel {kv['ms']:.3f} ms, plain "
               f"{kv['plain_ms']:.3f} ms (N={xf.shape[0]} frames, K={K}, "
-              f"D={D})")
+              f"D={D}; K2 as {N_SPK * UTT_PER_SPK} x {T_UTT})")
     phase("timing", t0)
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -84,9 +84,10 @@ def library():
             build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(path))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.lia_em_stats.argtypes = [p, p, p, ll, i, i, i, p, p, p, p]
+        lib.lia_em_stats.argtypes = [p, p, p, ll, i, i, i, i,
+                                     p, p, p, p, p, p]
         lib.lia_em_stats.restype = i
-        lib.lia_bw_stats.argtypes = [p, p, p, i, i, i, i, p, p, p]
+        lib.lia_bw_stats.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p, p]
         lib.lia_bw_stats.restype = i
         _lib = lib
         return lib

@@ -5,7 +5,8 @@ Reference ``computeAndAccumulateTVStat`` (AccumulateTVStat.cpp:281-351).
 Utterances are processed as padded (S, T, D) batches with (S, T) masks.
 For CUDA tensors the batch goes through kernel K2
 (``gmm.cuda_kernels.bw_stats_fused``); for CPU tensors through its plain
-version.  Saving and loading stats come with the port's io modules.
+version, in the tier ``stats_pass`` names.  Stats checkpoint as ``.npz``
+and as ALIZE ``.matx`` matrices (the reference's saveAccs layout).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from ..gmm.cuda_kernels import bw_stats_fused, bw_stats_reference, check_tier
 from ..gmm.kernels import llk_and_posteriors
 from ..gmm.model import GmmDiag
+from ..io.matrix import read_matrix_file, write_matrix_file
 from ..utils.shapes import bucket_len, next_pow2
 
 
@@ -69,14 +71,14 @@ def bw_stats_batch(x: torch.Tensor, mask: torch.Tensor, gmm: GmmDiag,
 
     ``use_fused=None`` picks kernel K2 for a CUDA tensor and the plain
     version for a CPU one; ``use_fused=False`` asks for the plain version
-    on any device."""
+    on any device.  ``stats_pass="bf16nx"`` is the fastStats tier."""
     check_tier(None, stats_pass)
     if use_fused is None:
         use_fused = x.device.type == "cuda"
     if use_fused:
         n, f, _ = bw_stats_fused(x, mask, gmm, stats_pass=stats_pass)
     else:
-        n, f, _ = bw_stats_reference(x, mask, gmm)
+        n, f, _ = bw_stats_reference(x, mask, gmm, stats_pass=stats_pass)
     return BwStats(n=n, f=f)
 
 
@@ -117,3 +119,39 @@ def bw_stats_bucketed(entries, gmm: GmmDiag, bucket: int = 2048,
                 rows_n[i] = st.n[j]
                 rows_f[i] = st.f[j]
     return BwStats(n=torch.stack(rows_n), f=torch.stack(rows_f))
+
+
+def save_stats(path: str, stats: BwStats, names: list[str] | None = None
+               ) -> None:
+    np.savez(path,
+             n=stats.n.detach().cpu().numpy(),
+             f=stats.f.detach().cpu().numpy(),
+             names=np.asarray(names if names is not None else [],
+                              dtype=object))
+
+
+def load_stats(path: str, device=None) -> tuple[BwStats, list[str]]:
+    z = np.load(path, allow_pickle=True)
+    return (BwStats(n=torch.as_tensor(z["n"], device=device),
+                    f=torch.as_tensor(z["f"], device=device)),
+            list(z["names"]))
+
+
+def save_stats_matx(prefix: str, stats: BwStats, fmt: str = "DB") -> None:
+    """ALIZE-interop checkpoint: <prefix>_N.matx (S,K) and <prefix>_F_X.matx
+    (S, K·D) — the reference's saveAccs layout."""
+    s, k, d = stats.f.shape
+    n = stats.n.detach().cpu().numpy().astype(np.float64)
+    f = stats.f.detach().cpu().numpy().astype(np.float64)
+    write_matrix_file(prefix + "_N.matx", n, fmt)
+    write_matrix_file(prefix + "_F_X.matx", f.reshape(s, k * d), fmt)
+
+
+def load_stats_matx(prefix: str, vect_size: int, device=None) -> BwStats:
+    n = read_matrix_file(prefix + "_N.matx")
+    f = read_matrix_file(prefix + "_F_X.matx")
+    s, k = n.shape
+    return BwStats(
+        n=torch.as_tensor(n, dtype=torch.float32, device=device),
+        f=torch.as_tensor(f.reshape(s, k, vect_size), dtype=torch.float32,
+                          device=device))

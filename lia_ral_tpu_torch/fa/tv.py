@@ -1,5 +1,5 @@
-"""TotalVariability model and exact i-vector extraction (port of
-lia_ral_tpu/fa/tv.py, the extraction half).
+"""TotalVariability model: T-matrix EM and exact i-vector extraction
+(port of lia_ral_tpu/fa/tv.py).
 
 Reference ``AccumulateTVStat``: estimateTETt (cpp:766) is one batched
 product giving E_c = T_c Σ_c⁻¹ T_cᵀ for all components; estimateW
@@ -9,18 +9,26 @@ gradients preconditioned in the eigenbasis of the occupancy-weighted
 Σ n̄_c E_c (the reference's eigenDecomposition quantities, used as a
 preconditioner so the solve stays exact).
 
+estimateAandC (cpp:1691-1800) is ``tv_e_step``, a speaker-chunked loop of
+batched Cholesky posteriors; updateTestimate (cpp:974) is ``tv_m_step``,
+one batched solve over the component axis; minDivergence (cpp:2056-2101)
+whitens T and folds the i-vector mean into the UBM means.
+
 Model layout: T is (R, K, D), the reference's (R, K·D) supervector rows
-kept component-major.  The TV E/M-step, minDivergence and the ubmWeight /
-eigenDecomposition approximations come in a later slice.
+kept component-major; on disk it is the reference's (R, K·D) .matx.  The
+ubmWeight / eigenDecomposition approximations are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from ..gmm.kernels import frame_llk
 from ..gmm.model import GmmDiag
+from ..io.matrix import read_matrix_file, write_matrix_file
 from .stats import BwStats
 
 
@@ -50,12 +58,49 @@ class TvModel:
         return TvModel(self.t.to(device), self.ubm_means.to(device),
                        self.ubm_inv_var.to(device))
 
+    def replace(self, **changes) -> "TvModel":
+        return dataclasses.replace(self, **changes)
+
     @classmethod
     def from_ubm(cls, t, gmm: GmmDiag) -> "TvModel":
         dev = gmm.device
         return cls(t=torch.as_tensor(t, dtype=torch.float32, device=dev),
                    ubm_means=gmm.means.to(torch.float32),
                    ubm_inv_var=gmm.cov_inv.to(torch.float32))
+
+    # file interop: the reference saves T as (R, K·D) .matx
+    def save(self, path: str, fmt: str = "DB") -> None:
+        write_matrix_file(path, self.t_flat().detach().cpu().numpy()
+                          .astype(np.float64), fmt)
+
+    @classmethod
+    def load(cls, path: str, gmm: GmmDiag) -> "TvModel":
+        t = read_matrix_file(path)
+        k, d = gmm.means.shape
+        return cls.from_ubm(t.reshape(t.shape[0], k, d), gmm)
+
+
+@dataclasses.dataclass(frozen=True)
+class TvAccums:
+    """EM accumulators (reference _A, _Cmx, _R, _r, _meanW)."""
+
+    a: torch.Tensor        # (K, R, R)  Σ_s N_sc·(L_s⁻¹ + w_s w_sᵀ)
+    c: torch.Tensor        # (R, K, D)  Σ_s w_s ⊗ F̄_s
+    r_mat: torch.Tensor    # (R, R)     Σ_s (L_s⁻¹ + w_s w_sᵀ)
+    r_vec: torch.Tensor    # (R,)       Σ_s w_s
+    n_utts: torch.Tensor   # ()
+
+    def merge(self, other: "TvAccums") -> "TvAccums":
+        return TvAccums(*(a + b for a, b in zip(
+            dataclasses.astuple(self), dataclasses.astuple(other))))
+
+    @classmethod
+    def zeros(cls, r: int, k: int, d: int, dtype=torch.float32,
+              device=None) -> "TvAccums":
+        def z(*shape):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return cls(a=z(k, r, r), c=z(r, k, d), r_mat=z(r, r), r_vec=z(r),
+                   n_utts=z())
 
 
 def init_t(generator: torch.Generator, rank: int, gmm: GmmDiag,
@@ -109,6 +154,75 @@ def _posterior_mean(n_blk, fbar_blk, model: TvModel, tett, tn_flat):
     """w only — see _posterior(need_cov=False)."""
     return _posterior(n_blk, fbar_blk, model, tett, tn_flat,
                       need_cov=False)[0]
+
+
+def tv_e_step(stats: BwStats, model: TvModel, chunk: int = 64
+              ) -> tuple[torch.Tensor, TvAccums]:
+    """Full E-step over all utterances, ``chunk`` speakers at a time; the
+    last chunk is padded with zero-occupancy speakers, which give w = 0
+    and are masked out of the accumulators.  Returns (w (S,R), accums).
+    Reference estimateAandC (cpp:1691-1800)."""
+    s, k = stats.n.shape
+    d, r = model.dim, model.rank
+    dev = stats.n.device
+    tett = estimate_tett(model)
+    tn_flat = _tn_flat(model)
+    fbar = stats.centered(model.ubm_means)                  # (S,K,D)
+    pad = (-s) % chunk
+    n_p = torch.cat([stats.n, stats.n.new_zeros((pad, k))])
+    f_p = torch.cat([fbar, fbar.new_zeros((pad, k, d))])
+    valid = torch.cat([torch.ones(s, device=dev),
+                       torch.zeros(pad, device=dev)])
+    acc = TvAccums.zeros(r, k, d, device=dev)
+    ws = []
+    for s0 in range(0, s + pad, chunk):
+        n_blk, f_blk = n_p[s0:s0 + chunk], f_p[s0:s0 + chunk]
+        v_blk = valid[s0:s0 + chunk]
+        w, linv = _posterior(n_blk, f_blk, model, tett, tn_flat)
+        w = w * v_blk[:, None]                              # zero padding
+        cov = (linv + w[:, :, None] * w[:, None, :]) * v_blk[:, None, None]
+        acc = TvAccums(
+            a=acc.a + (n_blk.T @ cov.reshape(chunk, r * r)).reshape(k, r, r),
+            c=acc.c + (w.T @ f_blk.reshape(chunk, k * d)).reshape(r, k, d),
+            r_mat=acc.r_mat + torch.sum(cov, dim=0),
+            r_vec=acc.r_vec + torch.sum(w, dim=0),
+            n_utts=acc.n_utts + torch.sum(v_blk))
+        ws.append(w)
+    return torch.cat(ws)[:s], acc
+
+
+def tv_m_step(model: TvModel, acc: TvAccums) -> TvModel:
+    """T_c = A_c⁻¹ C_c per component — reference updateTestimate
+    (cpp:974-1005), one batched solve over the component axis."""
+    t_new = torch.linalg.solve(acc.a, acc.c.permute(1, 0, 2))  # (K,R,D)
+    return model.replace(t=t_new.permute(1, 0, 2).contiguous())
+
+
+def min_divergence(model: TvModel, acc: TvAccums) -> TvModel:
+    """Minimum-divergence step (reference minDivergence, cpp:2056-2101):
+    whiten T by the empirical i-vector covariance, fold the i-vector mean
+    into the UBM means."""
+    n = torch.clamp(acc.n_utts, min=1.0)
+    r_bar = acc.r_vec / n
+    r_cov = acc.r_mat / n - r_bar[:, None] * r_bar[None, :]
+    # mean update BEFORE rotation (reference order): m += meanWᵀ·T
+    new_means = model.ubm_means + torch.einsum("r,rkd->kd", r_bar, model.t)
+    chol_l = torch.linalg.cholesky(r_cov)                   # R = L·Lᵀ
+    # T ← Lᵀ·T  (reference Ch upper with R = ChᵀCh, T ← Ch·T)
+    t_new = torch.einsum("rq,rkd->qkd", chol_l, model.t)
+    return model.replace(t=t_new, ubm_means=new_means)
+
+
+def tv_em_iteration(stats: BwStats, model: TvModel, chunk: int = 64,
+                    min_div: bool = True) -> tuple[TvModel, torch.Tensor]:
+    """One full T-matrix EM iteration (reference TotalVariability.cpp
+    117-168 loop body).  Returns (new model, i-vectors of this iteration).
+    """
+    w, acc = tv_e_step(stats, model, chunk=chunk)
+    new_model = tv_m_step(model, acc)
+    if min_div:
+        new_model = min_divergence(new_model, acc)
+    return new_model, w
 
 
 def _pcg_basis(model: TvModel, n_ref: torch.Tensor):
@@ -197,3 +311,27 @@ def estimate_w(stats: BwStats, model: TvModel, chunk: int = 256,
     if return_diag:
         return w, torch.cat(rels)
     return w
+
+
+def get_speaker_model(model: TvModel, w: torch.Tensor,
+                      gmm: GmmDiag) -> GmmDiag:
+    """Synthesise the speaker GMM m + Tᵀw (reference getSpeakerModel,
+    AccumulateTVStat.cpp:1533); weights/covariances stay the UBM's."""
+    shift = torch.einsum("r,rkd->kd", w, model.t)
+    return gmm.replace(means=model.ubm_means + shift)
+
+
+def verify_em_llk(x: torch.Tensor, mask: torch.Tensor, stats: BwStats,
+                  model: TvModel, gmm: GmmDiag, max_utts: int = 1) -> float:
+    """EM-likelihood check (reference verifyEMLK / getLLK,
+    AccumulateTVStat.cpp:1627-1688, config key ``computeLLK``): total
+    mean frame LLK of up to ``max_utts`` utterances (x (S,T,D), mask
+    (S,T)) under their synthesised speaker models."""
+    w_all = estimate_w(stats, model)
+    total = 0.0
+    for i in range(min(max_utts, stats.n_utts)):
+        spk = get_speaker_model(model, w_all[i], gmm)
+        llk = frame_llk(x[i], spk)
+        total += float(torch.sum(llk * mask[i])
+                       / torch.clamp(torch.sum(mask[i]), min=1.0))
+    return total

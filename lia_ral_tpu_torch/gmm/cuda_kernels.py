@@ -5,21 +5,28 @@ K1 ``em_stats_fused``: EM sufficient stats over a weighted frame block
 (replaces the Pallas ``em_stats_fused``).  K2 ``bw_stats_fused``:
 per-utterance Baum-Welch (N, F) stats and weighted llk (replaces the
 Pallas ``bw_stats_fused``).  The kernels live in ``csrc/gmm_stats.cu``;
-its header says how they are laid out for Hopper.
+its header says how they are laid out for Hopper and where each
+arithmetic tier rounds.
+
+Tiers, as the JAX kernels name them: the default (f32-grade), fastStats
+(``stats_pass="bf16nx"``: bf16 S/F contraction, exact occupancies),
+fastMath (``compute_dtype=torch.bfloat16``: bf16 base-2 logits, f32
+stats), and both together.  Each tier has a plain version here that
+rounds at the same points as its kernel.
 
 Dispatch is on the device of the input, with no fallback: a CPU tensor
 goes to the plain version (``em_stats_reference``/``bw_stats_reference``),
-a CUDA tensor launches the kernel or raises.  Only the default,
-f32-grade tier is ported; the fastStats (``stats_pass="bf16nx"``) and
-fastMath (``compute_dtype=torch.bfloat16``) tiers raise
-NotImplementedError on every device until they are.
+a CUDA tensor launches the kernel or raises.
 
-``launch_counts`` counts kernel launches per wrapper (plain ints, one
-per launch, nothing else adds to them), so a run can show that its main
-path went through the kernels.
+``launch_counts`` counts kernel launches per wrapper and tier (plain
+ints, one per launch, nothing else adds to them), e.g.
+``em_stats_fused[fastStats]``, so a run can show that its main path went
+through the kernels.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -27,8 +34,12 @@ from .kernels import EmStats, em_stats_chunked, llk_and_posteriors
 from .model import GmmDiag
 
 MAX_DIM = 64                    # largest feature dim the kernels take
+LOG2_E = 1.4426950408889634
+LN_2 = math.log(2.0)
 
-launch_counts = {"em_stats_fused": 0, "bw_stats_fused": 0}
+TIERS = ("", "fastStats", "fastMath", "fastMath+fastStats")   # by kernel id
+launch_counts = {f"{k}[{t}]" if t else k: 0
+                 for k in ("em_stats_fused", "bw_stats_fused") for t in TIERS}
 
 
 def reset_launch_counts() -> None:
@@ -36,38 +47,115 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def check_tier(compute_dtype=None, stats_pass: str = "x3") -> None:
-    """Raise for an arithmetic tier the port does not run (yet)."""
-    if compute_dtype is torch.bfloat16:
-        raise NotImplementedError(
-            "fastMath tier (bf16 densities) is not ported to CUDA yet")
-    if stats_pass == "bf16nx":
-        raise NotImplementedError(
-            "fastStats tier (stats_pass='bf16nx') is not ported to CUDA yet")
-    if compute_dtype not in (None, torch.float32):
+def check_tier(compute_dtype=None, stats_pass: str = "x3") -> int:
+    """The kernels' tier id (0 default, 1 fastStats, 2 fastMath, 3 both);
+    raises for a mode only the JAX package's sweep scripts reach."""
+    if compute_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported compute_dtype {compute_dtype}")
-    if stats_pass != "x3":
+    if stats_pass not in ("x3", "bf16nx"):
         raise ValueError(f"stats_pass {stats_pass!r} is a TPU sweep mode; "
-                         "only 'x3' (the default tier) exists here")
+                         "only 'x3' (default) and 'bf16nx' (fastStats) "
+                         "exist here")
+    return ((2 if compute_dtype is torch.bfloat16 else 0)
+            + (1 if stats_pass == "bf16nx" else 0))
+
+
+def _count_key(kernel: str, tier: int) -> str:
+    return f"{kernel}[{TIERS[tier]}]" if tier else kernel
 
 
 # -- plain versions -------------------------------------------------------
 
+def _bf16r(t: torch.Tensor) -> torch.Tensor:
+    """Round to the nearest bf16 and back to f32 (so a CPU matmul of two
+    rounded operands multiplies exactly and accumulates in f32, as the
+    tensor units do; torch's CPU bf16 @ bf16 would return bf16)."""
+    return t.to(torch.bfloat16).float()
+
+
+def tier_params(gmm: GmmDiag, tier: int) -> torch.Tensor:
+    """The (2D+1, K) parameter matrix a tier's kernel takes.  The tiers
+    run base-2 logits, as the TPU kernel does under its default
+    ``exp_mode="exp2"``: B and the cst row are scaled by log2(e), and for
+    fastMath the B rows are then rounded to bf16 while cst stays f32
+    (lia_ral_tpu/gmm/pallas_kernels.py:289-312).  The default tier keeps
+    natural-base f32 logits."""
+    bt = kernel_params(gmm)
+    if tier == 0:
+        return bt
+    if tier == 1:
+        return bt * LOG2_E
+    d = gmm.dim
+    return torch.cat([_bf16r(bt[:2 * d] * LOG2_E), bt[2 * d:] * LOG2_E])
+
+
+def _tier_block(x: torch.Tensor, w: torch.Tensor, bt: torch.Tensor,
+                tier: int):
+    """Plain version of one tier on x (B,T,D), w (B,T): per utterance
+    (n (B,K), sum_x (B,K,D), sum_xx (B,K,D), Σ w·llk (B,)), rounding where
+    the TPU kernel rounds.  The logits are the base-2 xa·B with
+    xa = [x², x, 1]; p = exp2(ld − m) unnormalised with m the row max,
+    s = w / Σp, and the stats pᵀ·(xa·s) — in bf16 operands for fastStats,
+    whose occupancy column is the exact Σ p·s instead."""
+    d = x.shape[-1]
+    xa = torch.cat([x * x, x, torch.ones_like(x[..., :1])], dim=-1)
+    if tier >= 2:           # fastMath: bf16 operands, cst added in f32
+        ld = _bf16r(xa[..., :2 * d]) @ bt[:2 * d] + bt[2 * d]
+    else:
+        ld = xa @ bt
+    m = torch.amax(ld, dim=-1, keepdim=True)
+    p = torch.exp2(ld - m)
+    ssum = torch.sum(p, dim=-1)
+    llk = torch.log(ssum) + m[..., 0] * LN_2
+    s = w / ssum
+    xs = xa * s[..., None]
+    if tier & 1:            # fastStats
+        stats = _bf16r(p).transpose(-1, -2) @ _bf16r(xs)
+        n = torch.sum(p * s[..., None], dim=-2)
+    else:
+        stats = p.transpose(-1, -2) @ xs
+        n = stats[..., 2 * d]
+    return (n, stats[..., d:2 * d], stats[..., :d],
+            torch.sum(llk * w, dim=-1))
+
+
 def em_stats_reference(x: torch.Tensor, w: torch.Tensor, gmm: GmmDiag,
-                       chunk: int = 4096) -> EmStats:
-    """Plain version of K1: ``kernels.em_stats_chunked``."""
-    return em_stats_chunked(x, w, gmm, chunk=chunk)
+                       chunk: int = 4096, compute_dtype=None,
+                       stats_pass: str = "x3") -> EmStats:
+    """Plain version of K1: ``kernels.em_stats_chunked`` in the default
+    tier, the tier's own plain path (``chunk`` frames at a time)
+    otherwise."""
+    tier = check_tier(compute_dtype, stats_pass)
+    if tier == 0:
+        return em_stats_chunked(x, w, gmm, chunk=chunk)
+    bt = tier_params(gmm, tier)
+    acc = EmStats.zeros(gmm.n_components, gmm.dim, x.dtype, x.device)
+    for s0 in range(0, x.shape[0], chunk):
+        xc, wc = x[s0:s0 + chunk], w[s0:s0 + chunk]
+        n, sx, sxx, ll = _tier_block(xc[None], wc[None], bt, tier)
+        acc = acc.merge(EmStats(n=n[0], sum_x=sx[0], sum_xx=sxx[0],
+                                llk=ll[0], count=torch.sum(wc)))
+    return acc
 
 
 def bw_stats_reference(x: torch.Tensor, w: torch.Tensor, gmm: GmmDiag,
-                       batch: int = 64
+                       batch: int = 64, compute_dtype=None,
+                       stats_pass: str = "x3"
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of K2: per-utterance (n (S,K), f (S,K,D), weighted
     llk (S,)) of x (S,T,D), w (S,T), ``batch`` utterances at a time."""
+    tier = check_tier(compute_dtype, stats_pass)
+    bt = tier_params(gmm, tier) if tier else None
     s, t, d = x.shape
     ns, fs, ls = [], [], []
     for b in range(0, s, batch):
         xb, wb = x[b:b + batch], w[b:b + batch]
+        if tier:
+            n, f, _, ll = _tier_block(xb, wb, bt, tier)
+            ns.append(n)
+            fs.append(f)
+            ls.append(ll)
+            continue
         llk, post = llk_and_posteriors(xb.reshape(-1, d), gmm)
         pw = post.reshape(xb.shape[0], t, -1) * wb[..., None]  # (B,T,K)
         ns.append(torch.sum(pw, dim=1))
@@ -119,6 +207,14 @@ def _raise_on(err: int, name: str) -> None:
                            f"(cudaError {err})")
 
 
+def _tier_scratch(n: int, tier: int, opts):
+    """Scratch for the llk pass's per-frame m and s outputs (None in the
+    default tier, whose kernels do not write them)."""
+    if tier == 0:
+        return None, None
+    return torch.empty((n,), **opts), torch.empty((n,), **opts)
+
+
 def em_stats_fused(x: torch.Tensor, w: torch.Tensor, gmm: GmmDiag,
                    chunk: int = 8192, compute_dtype=None,
                    stats_pass: str = "x3") -> EmStats:
@@ -127,9 +223,10 @@ def em_stats_fused(x: torch.Tensor, w: torch.Tensor, gmm: GmmDiag,
     On CUDA, ``chunk`` frames go to each CTA row of the stats pass; the
     per-chunk partials are added in a fixed order, so the result
     reproduces to every digit for a given N and chunk."""
-    check_tier(compute_dtype, stats_pass)
+    tier = check_tier(compute_dtype, stats_pass)
     if x.device.type == "cpu":
-        return em_stats_reference(x, w, gmm)
+        return em_stats_reference(x, w, gmm, compute_dtype=compute_dtype,
+                                  stats_pass=stats_pass)
     _check_cuda_inputs("em_stats_fused", x, w, gmm)
     from .._build import library
 
@@ -138,18 +235,21 @@ def em_stats_fused(x: torch.Tensor, w: torch.Tensor, gmm: GmmDiag,
     k = gmm.n_components
     a = 2 * d + 2
     n_chunks = -(-n // chunk)
-    params = kernel_params(gmm)
+    params = tier_params(gmm, tier)
     opts = dict(dtype=torch.float32, device=x.device)
     llk = torch.empty((n,), **opts)
+    m, s = _tier_scratch(n, tier, opts)
     partials = torch.empty((n_chunks, k + 1, a), **opts)
     out = torch.empty((k + 1, a), **opts)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.lia_em_stats(x.data_ptr(), w.data_ptr(), params.data_ptr(),
-                               n, d, k, chunk, llk.data_ptr(),
+                               n, d, k, chunk, tier, llk.data_ptr(),
+                               m.data_ptr() if tier else None,
+                               s.data_ptr() if tier else None,
                                partials.data_ptr(), out.data_ptr(), stream)
     _raise_on(err, "em_stats_fused")
-    launch_counts["em_stats_fused"] += 1
+    launch_counts[_count_key("em_stats_fused", tier)] += 1
     return EmStats(n=out[:k, 2 * d], sum_x=out[:k, d:2 * d],
                    sum_xx=out[:k, :d], llk=out[k, 0], count=out[k, 1])
 
@@ -162,9 +262,10 @@ def bw_stats_fused(x: torch.Tensor, w: torch.Tensor, gmm: GmmDiag,
 
     On CUDA one CTA owns one (utterance, 64-component tile) and loops
     over all T frames itself, so no sum crosses CTAs."""
-    check_tier(compute_dtype, stats_pass)
+    tier = check_tier(compute_dtype, stats_pass)
     if x.device.type == "cpu":
-        return bw_stats_reference(x, w, gmm)
+        return bw_stats_reference(x, w, gmm, compute_dtype=compute_dtype,
+                                  stats_pass=stats_pass)
     _check_cuda_inputs("bw_stats_fused", x, w, gmm)
     if x.dim() != 3:
         raise ValueError(f"bw_stats_fused: x must be (S,T,D), got "
@@ -174,15 +275,18 @@ def bw_stats_fused(x: torch.Tensor, w: torch.Tensor, gmm: GmmDiag,
     lib = library()
     s, t, d = x.shape
     k = gmm.n_components
-    params = kernel_params(gmm)
+    params = tier_params(gmm, tier)
     opts = dict(dtype=torch.float32, device=x.device)
     llk = torch.empty((s * t,), **opts)
+    m, sc = _tier_scratch(s * t, tier, opts)
     out = torch.empty((s, k + 1, 2 * d + 2), **opts)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.lia_bw_stats(x.data_ptr(), w.data_ptr(), params.data_ptr(),
-                               s, t, d, k, llk.data_ptr(), out.data_ptr(),
-                               stream)
+                               s, t, d, k, tier, llk.data_ptr(),
+                               m.data_ptr() if tier else None,
+                               sc.data_ptr() if tier else None,
+                               out.data_ptr(), stream)
     _raise_on(err, "bw_stats_fused")
-    launch_counts["bw_stats_fused"] += 1
+    launch_counts[_count_key("bw_stats_fused", tier)] += 1
     return out[:, :k, 2 * d], out[:, :k, d:2 * d], out[:, k, 0]

@@ -4,9 +4,10 @@
 Reference ``LIA_SpkTools/src/TrainTools.cpp`` (trainModel cpp:993-1028,
 mixtureInit cpp:619-674, varianceControl cpp:567-592, setItParameter
 cpp:560-564) and ``GeneralTools.cpp`` baggedSegments (cpp:455-511).
-Frames live in one (N,D) tensor, the bagged subsample is a per-frame
-weight mask drawn from an explicit ``torch.Generator``, and the stats
-pass is kernel K1 for CUDA tensors, the plain chunked path for CPU ones.
+Frames live in one (N,D) tensor (or stream through bounded buffers in
+``train_model_streaming``), the bagged subsample is a per-frame weight
+mask drawn from an explicit ``torch.Generator``, and the stats pass is
+kernel K1 for CUDA tensors, its plain version for CPU ones.
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ from typing import Callable
 
 import torch
 
-from .cuda_kernels import check_tier, em_stats_fused
-from .kernels import EmStats, em_stats_chunked
+from .cuda_kernels import (check_tier, em_stats_fused,
+                           em_stats_reference)
+from .kernels import EmStats
 from .model import GmmDiag
 
 
@@ -62,16 +64,20 @@ def default_stats_fn(chunk: int = 4096, block: int = 8192,
                      fast_math: bool = False, fast_stats: bool = False):
     """The stats pass for the input's device: kernel K1
     (``cuda_kernels.em_stats_fused``, ``block`` frames per CTA chunk) for
-    a CUDA tensor, the plain ``em_stats_chunked`` (``chunk`` frames at a
-    time) for a CPU tensor.  The fastMath and fastStats tiers are not
-    ported yet and raise NotImplementedError."""
-    check_tier(torch.bfloat16 if fast_math else None,
-               "bf16nx" if fast_stats else "x3")
+    a CUDA tensor, its plain version (``chunk`` frames at a time) for a
+    CPU tensor.  ``fast_math`` (config key ``fastMath``) takes the bf16
+    logit tier, ``fast_stats`` (``fastStats``) the bf16 S/F tier with
+    exact occupancies; ``cuda_kernels`` says where each rounds."""
+    dt = torch.bfloat16 if fast_math else None
+    sp = "bf16nx" if fast_stats else "x3"
+    check_tier(dt, sp)
 
     def fn(x, w, gmm):
         if x.device.type == "cuda":
-            return em_stats_fused(x, w, gmm, chunk=block)
-        return em_stats_chunked(x, w, gmm, chunk=chunk)
+            return em_stats_fused(x, w, gmm, chunk=block, compute_dtype=dt,
+                                  stats_pass=sp)
+        return em_stats_reference(x, w, gmm, chunk=chunk, compute_dtype=dt,
+                                  stats_pass=sp)
     return fn
 
 
@@ -238,6 +244,68 @@ def train_model(generator: torch.Generator, x: torch.Tensor,
                   f"frames={float(stats.count):.0f} floor={floor:.3f} "
                   f"ceil={ceil:.3f}")
         gmm = _m_step_with_variance_control(stats, floor, ceil, gcov)
+    if cfg.component_reduction and cfg.target_distrib_count > 0:
+        gmm = reduce_model(gmm, cfg.target_distrib_count)
+    return gmm
+
+
+def streaming_global_mean_cov(loader, device=None
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Global weighted mean/cov in one streaming pass over the loader's
+    numpy ``(x, w)`` chunks, on ``device``."""
+    s = s2 = None
+    cnt = 0.0
+    for x, w in loader():
+        x = torch.as_tensor(x, device=device)
+        w = torch.as_tensor(w, device=device)
+        xw = x * w[:, None]
+        c0 = torch.sum(x * xw, dim=0)
+        c1 = torch.sum(xw, dim=0)
+        s = c1 if s is None else s + c1
+        s2 = c0 if s2 is None else s2 + c0
+        cnt += float(torch.sum(w))
+    mean = s / max(cnt, 1e-30)
+    return mean, s2 / max(cnt, 1e-30) - mean * mean
+
+
+def train_model_streaming(generator: torch.Generator, loader,
+                          init: GmmDiag, cfg: TrainCfg,
+                          stats_fn=None, chunk: int = 4096,
+                          verbose: bool = False) -> GmmDiag:
+    """UBM EM over a corpus streamed in bounded buffers.
+
+    ``loader`` is a zero-argument callable returning a fresh iterable of
+    numpy ``(x, w)`` fixed-shape chunks per epoch (the
+    featureServerBufferSize contract).  Each chunk goes to the init
+    model's device; each EM iteration streams the corpus once and merges
+    the per-chunk stats, so the result equals in-RAM training when the
+    bagged masks match."""
+    if stats_fn is None:
+        stats_fn = default_stats_fn(chunk=chunk)
+    dev = init.device
+    _, gcov = streaming_global_mean_cov(loader, dev)
+    gmm = init
+    k, d = init.means.shape
+    for it in range(cfg.nb_train_it):
+        floor = schedule_value(cfg.init_variance_flooring,
+                               cfg.final_variance_flooring,
+                               cfg.nb_train_it, it)
+        ceil = schedule_value(cfg.init_variance_ceiling,
+                              cfg.final_variance_ceiling,
+                              cfg.nb_train_it, it)
+        merged = EmStats.zeros(k, d, device=dev)
+        for x, w in loader():
+            w = torch.as_tensor(w, device=dev)
+            mask = bagged_frame_mask(generator, w,
+                                     cfg.bagged_frame_probability,
+                                     cfg.bagged_minimal_length,
+                                     cfg.bagged_maximal_length)
+            merged = merged.merge(stats_fn(torch.as_tensor(x, device=dev),
+                                           mask, gmm))
+        if verbose:
+            print(f"stream it {it}: meanLLK={float(merged.mean_llk()):.5f} "
+                  f"frames={float(merged.count):.0f}")
+        gmm = _m_step_with_variance_control(merged, floor, ceil, gcov)
     if cfg.component_reduction and cfg.target_distrib_count > 0:
         gmm = reduce_model(gmm, cfg.target_distrib_count)
     return gmm

@@ -1,8 +1,8 @@
 """GmmDiag: the diagonal-covariance GMM (port of lia_ral_tpu/gmm/model.py).
 
 Three dense tensors — ``weights (K,)``, ``means (K,D)``, ``cov_inv (K,D)``
-(inverse variances) — with the log-space constants derived on demand.
-File IO comes with the port's io modules.
+(inverse variances) — with the log-space constants derived on demand,
+and RAW/XML file IO through ``io.gmm_io``.
 """
 
 from __future__ import annotations
@@ -10,7 +10,10 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
+
+from ..io.gmm_io import read_gmm_file, write_gmm_file
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -74,6 +77,22 @@ class GmmDiag:
                  device=None) -> "GmmDiag":
         cov = torch.as_tensor(cov, dtype=dtype, device=device)
         return cls.create(weights, means, 1.0 / cov, dtype, device)
+
+    # -- file IO (host side) -------------------------------------------------
+    @classmethod
+    def load(cls, path: str, fmt: str | None = None, dtype=torch.float32,
+             device=None) -> "GmmDiag":
+        """Read a RAW or XML mixture file (``fmt`` None: sniff the file)."""
+        w, m, ci = read_gmm_file(path, fmt)
+        return cls.create(w, m, ci, dtype, device)
+
+    def save(self, path: str, fmt: str = "RAW", model_id: str = "#1") -> None:
+        """Write the mixture as RAW or XML (values widened to f64, as the
+        JAX package writes them, so a RAW round trip is bit-exact)."""
+        def f64(t):
+            return t.detach().cpu().numpy().astype(np.float64)
+        write_gmm_file(path, f64(self.weights), f64(self.means),
+                       f64(self.cov_inv), fmt=fmt, model_id=model_id)
 
     @classmethod
     def uniform_init(cls, k: int, d: int, dtype=torch.float32,

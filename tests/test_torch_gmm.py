@@ -280,9 +280,25 @@ def test_default_stats_fn_on_cpu_takes_plain_path(rng):
 
 # -- tiers and dispatch ---------------------------------------------------------
 
+def _jax_tier(name, x3, w2, x2, w1, jg):
+    """The JAX package's Pallas kernel in interpret mode, in the tier of
+    case ``name``, on the same inputs."""
+    from lia_ral_tpu.gmm.pallas_kernels import bw_stats_fused as jbw
+    from lia_ral_tpu.gmm.pallas_kernels import em_stats_fused as jemf
+
+    kw = (dict(compute_dtype=jnp.bfloat16) if name.endswith(("bf16", "math"))
+          else dict(stats_pass="bf16nx"))
+    if name.startswith("k2"):
+        return jbw(jnp.asarray(x3), jnp.asarray(w2), jg, block=32,
+                   interpret=True, **kw)
+    return jemf(jnp.asarray(x2), jnp.asarray(w1), jg, block=32,
+                interpret=True, **kw)
+
+
 @pytest.mark.parametrize("call", [
-    lambda x3, w2, x2, w1, g: tem.default_stats_fn(fast_math=True),
-    lambda x3, w2, x2, w1, g: tem.default_stats_fn(fast_stats=True),
+    lambda x3, w2, x2, w1, g: tem.default_stats_fn(fast_math=True)(x2, w1, g),
+    lambda x3, w2, x2, w1, g: tem.default_stats_fn(fast_stats=True)(x2, w1,
+                                                                    g),
     lambda x3, w2, x2, w1, g: em_stats_fused(x2, w1, g, stats_pass="bf16nx"),
     lambda x3, w2, x2, w1, g: em_stats_fused(x2, w1, g,
                                              compute_dtype=torch.bfloat16),
@@ -291,20 +307,61 @@ def test_default_stats_fn_on_cpu_takes_plain_path(rng):
                                              compute_dtype=torch.bfloat16),
 ], ids=["em_fast_math", "em_fast_stats", "k1_bf16nx", "k1_bf16", "k2_bf16nx",
         "k2_bf16"])
-def test_unported_tiers_raise(rng, call):
-    _, tg = both_gmms(rng, 4, 3)
-    x3 = torch.zeros((2, 8, 3))
-    w2 = torch.ones((2, 8))
-    with pytest.raises(NotImplementedError):
-        call(x3, w2, x3[0], w2[0], tg)
+def test_unported_tiers_raise(rng, call, request):
+    """The six tier entry points that raised NotImplementedError before the
+    fastStats and fastMath tiers were ported (the name is kept): each now
+    runs its plain version on the CPU, which must match the JAX package's
+    Pallas kernel in interpret mode in the same tier, without launching a
+    kernel.  Budgets: fastStats n at the default budget (rtol 1e-4, atol
+    1e-4·max n), S/F 2e-3·max|·| (the tier's bf16 rounding of p and xa·s,
+    measured 1e-3 against the exact path), llk rel 1e-5; fastMath the JAX
+    suite's own bf16 budgets (tests/test_pallas_kernel.py:72-80)."""
+    name = request.node.callspec.id
+    jg, tg = both_gmms(rng, 16, 7)
+    x3 = rng.standard_normal((3, 70, 7)).astype(np.float32)
+    w2 = (rng.random((3, 70)) > 0.3).astype(np.float32)
+    w2[1] = 0.0                             # an all-zero-weight utterance
+    x2, w1 = x3.reshape(-1, 7), w2.reshape(-1) * rng.random(210, np.float32)
+    before = dict(launch_counts)
+    got = call(torch.from_numpy(x3), torch.from_numpy(w2),
+               torch.from_numpy(x2), torch.from_numpy(w1), tg)
+    assert launch_counts == before
+    want = _jax_tier(name, x3, w2, x2, w1, jg)
+    if name.startswith("k2"):
+        got = (got[0], got[1], got[2])
+        pairs = [("n", got[0], want[0]), ("f", got[1], want[1])]
+        llk = (got[2], want[2])
+        assert torch.all(got[0][1] == 0) and torch.all(got[1][1] == 0)
+    else:
+        pairs = [("n", got.n, want.n), ("sum_x", got.sum_x, want.sum_x),
+                 ("sum_xx", got.sum_xx, want.sum_xx)]
+        llk = (got.llk, want.llk)
+        np.testing.assert_allclose(float(got.count), float(want.count),
+                                   rtol=1e-6)
+    fast_math = name.endswith(("bf16", "math"))
+    for label, a, b in pairs:
+        a, b = np_of(a), np_of(b)
+        if fast_math:
+            np.testing.assert_allclose(a, b, rtol=0.05,
+                                       atol=0.05 if label == "n" else 0.1)
+        elif label == "n":
+            np.testing.assert_allclose(a, b, rtol=1e-4,
+                                       atol=1e-4 * np.abs(b).max())
+        else:
+            np.testing.assert_allclose(a, b, rtol=2e-3,
+                                       atol=2e-3 * np.abs(b).max())
+    np.testing.assert_allclose(np_of(llk[0]), np_of(llk[1]),
+                               rtol=5e-3 if fast_math else 1e-5, atol=1e-3)
 
 
 def test_sweep_only_modes_rejected(rng):
     _, tg = both_gmms(rng, 4, 3)
     x, w = torch.zeros((8, 3)), torch.ones(8)
-    for mode in ("bf16", "bf16sr", "bf16x2p"):
+    for mode in ("bf16", "bf16sr", "bf16x2p", "bf16x2x"):
         with pytest.raises(ValueError):
             em_stats_fused(x, w, tg, stats_pass=mode)
+    with pytest.raises(ValueError):
+        em_stats_fused(x, w, tg, compute_dtype=torch.float16)
 
 
 def test_non_cpu_non_cuda_tensor_has_no_fallback(rng):
@@ -355,6 +412,17 @@ def test_port_imports_no_jax():
         "import lia_ral_tpu_torch.fa.stats, lia_ral_tpu_torch.fa.tv\n"
         "import lia_ral_tpu_torch.backend.scoring\n"
         "import lia_ral_tpu_torch.backend.eval\n"
+        "import lia_ral_tpu_torch.config, lia_ral_tpu_torch.io\n"
+        "import lia_ral_tpu_torch.io.features, lia_ral_tpu_torch.io.gmm_io\n"
+        "import lia_ral_tpu_torch.io.labels, lia_ral_tpu_torch.io.lists\n"
+        "import lia_ral_tpu_torch.io.matrix, lia_ral_tpu_torch.io.nist\n"
+        "import lia_ral_tpu_torch.__main__, lia_ral_tpu_torch.tools\n"
+        "import lia_ral_tpu_torch.tools.common\n"
+        "import lia_ral_tpu_torch.tools.train_world\n"
+        "import lia_ral_tpu_torch.tools.total_variability\n"
+        "import lia_ral_tpu_torch.tools.iv_extractor\n"
+        "import lia_ral_tpu_torch.tools.iv_test\n"
+        "import lia_ral_tpu_torch.tools.iv_norm\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"

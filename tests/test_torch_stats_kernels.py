@@ -1,12 +1,12 @@
 """Kernels K1 (EM stats) and K2 (per-utterance Baum-Welch stats) of the
-PyTorch port: their plain versions against the JAX package's Pallas
-kernels run in interpret mode (the JAX suite's own CPU route) and
-against its XLA stats paths.  The CUDA kernels themselves are held
-against these plain versions in tests/test_torch_cuda_kernels.py.
+PyTorch port: their plain versions, in every tier, against the JAX
+package's Pallas kernels run in interpret mode (the JAX suite's own CPU
+route) and against its XLA stats paths.  The CUDA kernels themselves
+are held against these plain versions in tests/test_torch_cuda_kernels.py.
 
 Tolerances: the JAX suite's CPU budgets (tests/test_pallas_kernel.py
 :35-46 and :153-163) — n rtol/atol 1e-4, sums rtol/atol 1e-3, llk rel
-1e-5.
+1e-5.  The tiers' budgets are stated at ``_assert_tier_close``.
 """
 
 import numpy as np
@@ -22,8 +22,8 @@ from lia_ral_tpu.gmm.pallas_kernels import em_stats_fused as jem_fused
 from lia_ral_tpu_torch.fa import stats as tstats
 from lia_ral_tpu_torch.gmm import cuda_kernels as ck
 
-from _torch_parity import (LLK_RTOL, N_TOL, SUM_TOL, assert_em_stats_close,
-                           both_gmms, np_of)
+from _torch_parity import (COUNT_RTOL, LLK_RTOL, N_TOL, SUM_TOL,
+                           assert_em_stats_close, both_gmms, np_of)
 
 
 def _frames(rng, n, d, zero_frac=0.05):
@@ -191,3 +191,157 @@ def test_kernel_params_give_the_logits(rng):
     xa = torch.cat([x * x, x, torch.ones((50, 1))], dim=1)
     np.testing.assert_allclose(np_of(xa @ bt), np_of(weighted_logdens(x, tg)),
                                rtol=1e-5, atol=1e-4)
+
+
+# -- the fastStats and fastMath tiers ------------------------------------------
+
+TIER_CASES = [(None, "bf16nx"), (jnp.bfloat16, "x3"), (jnp.bfloat16, "bf16nx")]
+TIER_IDS = ["fastStats", "fastMath", "fastMath+fastStats"]
+
+
+def _torch_dtype(cdt):
+    return torch.bfloat16 if cdt is not None else None
+
+
+def _assert_tier_close(got, want, cdt, sp):
+    """(n, sum arrays..., llk) of a tier's plain version against the JAX
+    tier.  fastStats: n at the default budget, S/F 2e-3·max|·|, llk rel
+    1e-5; fastMath alone: the JAX suite's bf16 budgets
+    (tests/test_pallas_kernel.py:72-80)."""
+    n_g, n_w = np_of(got[0]), np_of(want[0])
+    if cdt is not None and sp == "x3":
+        np.testing.assert_allclose(n_g, n_w, rtol=0.05, atol=0.05)
+        for a, b in zip(got[1:-1], want[1:-1]):
+            np.testing.assert_allclose(np_of(a), np_of(b), rtol=0.05,
+                                       atol=0.1)
+        np.testing.assert_allclose(np_of(got[-1]), np_of(want[-1]),
+                                   rtol=5e-3, atol=1e-3)
+        return
+    np.testing.assert_allclose(n_g, n_w, rtol=1e-4,
+                               atol=1e-4 * np.abs(n_w).max())
+    for a, b in zip(got[1:-1], want[1:-1]):
+        b = np_of(b)
+        np.testing.assert_allclose(np_of(a), b, rtol=2e-3,
+                                   atol=2e-3 * np.abs(b).max())
+    np.testing.assert_allclose(np_of(got[-1]), np_of(want[-1]),
+                               rtol=LLK_RTOL if cdt is None else 5e-3,
+                               atol=1e-3)
+
+
+def _max_dev(a, b):
+    return float(np.max(np.abs(np_of(a) - np_of(b))))
+
+
+@pytest.mark.parametrize("cdt,sp", TIER_CASES, ids=TIER_IDS)
+@pytest.mark.parametrize("n,k,d", [(96, 8, 5), (130, 16, 7)])
+def test_k1_tier_plain_matches_jax_kernel(rng, n, k, d, cdt, sp):
+    """The tier's plain version against the JAX kernel in the same tier,
+    and against the JAX kernel with f32 logits (``mxu_precision=
+    "highest"``, the arithmetic of the CUDA kernel): the port sits far
+    closer to that than to the default tier, so its bf16 roundings are
+    where the TPU kernel's are."""
+    jg, tg = both_gmms(rng, k, d)
+    x, w = _frames(rng, n, d)
+    xj, wj = jnp.asarray(x), jnp.asarray(w)
+    got = ck.em_stats_reference(torch.from_numpy(x), torch.from_numpy(w), tg,
+                                chunk=32, compute_dtype=_torch_dtype(cdt),
+                                stats_pass=sp)
+    want = jem_fused(xj, wj, jg, block=32, interpret=True, compute_dtype=cdt,
+                     stats_pass=sp)
+    fields = ("n", "sum_x", "sum_xx", "llk")
+    _assert_tier_close([getattr(got, f) for f in fields],
+                       [getattr(want, f) for f in fields], cdt, sp)
+    np.testing.assert_allclose(float(got.count), float(want.count),
+                               rtol=COUNT_RTOL)
+    f32 = jem_fused(xj, wj, jg, block=32, interpret=True, compute_dtype=cdt,
+                    stats_pass=sp, mxu_precision="highest")
+    default = jem_fused(xj, wj, jg, block=32, interpret=True,
+                        mxu_precision="highest")
+    for f in ("sum_x", "sum_xx"):
+        assert (_max_dev(getattr(got, f), getattr(f32, f))
+                < 0.25 * _max_dev(getattr(f32, f), getattr(default, f)))
+
+
+@pytest.mark.parametrize("cdt,sp", TIER_CASES, ids=TIER_IDS)
+@pytest.mark.parametrize("t", [70, 61, 2060])
+def test_k2_tier_plain_matches_jax_kernel(rng, t, cdt, sp):
+    """Ragged masks, an all-zero-weight utterance, T off and above the JAX
+    block (as the default tier's tests)."""
+    jg, tg = both_gmms(rng, 16, 5)
+    x, mask = _utterances(rng, 3, t, 5)
+    mask[1] = 0.0
+    xj, mj = jnp.asarray(x), jnp.asarray(mask)
+    got = ck.bw_stats_reference(torch.from_numpy(x), torch.from_numpy(mask),
+                                tg, batch=2, compute_dtype=_torch_dtype(cdt),
+                                stats_pass=sp)
+    want = jbw_fused(xj, mj, jg, interpret=True, compute_dtype=cdt,
+                     stats_pass=sp)
+    _assert_tier_close(got, want, cdt, sp)
+    assert torch.all(got[0][1] == 0) and torch.all(got[1][1] == 0)
+    assert float(got[2][1]) == 0.0
+    f32 = jbw_fused(xj, mj, jg, interpret=True, compute_dtype=cdt,
+                    stats_pass=sp, mxu_precision="highest")
+    default = jbw_fused(xj, mj, jg, interpret=True, mxu_precision="highest")
+    assert _max_dev(got[1], f32[1]) < 0.25 * _max_dev(f32[1], default[1])
+
+
+def test_tier_dispatch_on_cpu(rng):
+    """CPU tensors take each tier's plain version through every entry
+    point, and nothing counts as a launch."""
+    from lia_ral_tpu_torch.gmm import em as tem
+
+    _, tg = both_gmms(rng, 8, 5)
+    x, mask = _utterances(rng, 4, 40, 5)
+    xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+    before = dict(ck.launch_counts)
+    for fast_math, fast_stats in ((False, True), (True, False), (True, True)):
+        dt = torch.bfloat16 if fast_math else None
+        sp = "bf16nx" if fast_stats else "x3"
+        got = tem.default_stats_fn(chunk=16, fast_math=fast_math,
+                                   fast_stats=fast_stats)(
+            xt.reshape(-1, 5), mt.reshape(-1), tg)
+        want = ck.em_stats_reference(xt.reshape(-1, 5), mt.reshape(-1), tg,
+                                     chunk=16, compute_dtype=dt,
+                                     stats_pass=sp)
+        assert torch.equal(got.sum_x, want.sum_x)
+    bw = tstats.bw_stats_batch(xt, mt, tg, stats_pass="bf16nx")
+    n, f, _ = ck.bw_stats_reference(xt, mt, tg, stats_pass="bf16nx")
+    assert torch.equal(bw.n, n) and torch.equal(bw.f, f)
+    assert ck.launch_counts == before
+    assert ck.check_tier(None, "x3") == 0
+    assert ck.check_tier(torch.bfloat16, "bf16nx") == 3
+
+
+def test_fast_stats_params_match_jax_base2(rng):
+    """fastStats' B: the JAX wrapper's base-2 design under its default
+    ``exp_mode="exp2"`` (pallas_kernels.py:281-293, :307-312): B and cst
+    scaled by log2(e), unrounded, cst folded into the constant-1 row
+    (rtol 1e-6, f32 roundoff of the two scalings)."""
+    jg, tg = both_gmms(rng, 16, 7)
+    d = 7
+    mi = np.asarray(jg.means * jg.cov_inv, np.float64)
+    ci = np.asarray(jg.cov_inv, np.float64)
+    cst = (-0.5 * (d * np.log(2 * np.pi) - np.sum(np.log(ci), axis=-1))
+           - 0.5 * np.sum(np.asarray(jg.means, np.float64) * mi, axis=-1)
+           + np.log(np.asarray(jg.weights, np.float64)))
+    want = np.concatenate([-0.5 * ci.T, mi.T, cst[None]], axis=0) * ck.LOG2_E
+    np.testing.assert_allclose(np_of(ck.tier_params(tg, 1)), want,
+                               rtol=1e-6, atol=1e-6 * np.abs(want).max())
+
+
+def test_fast_math_params_match_jax_rounding(rng):
+    """fastMath's B: log2(e)·B rounded to bf16 exactly as the JAX wrapper
+    rounds it (pallas_kernels.py:289-295), cst·log2(e) kept f32."""
+    jg, tg = both_gmms(rng, 16, 7)
+    bt = ck.tier_params(tg, 2)
+    b_rows = np_of(bt[:14])
+    assert np.array_equal(
+        b_rows, np_of(torch.from_numpy(b_rows).to(torch.bfloat16).float()))
+    mi = np.asarray(jg.means * jg.cov_inv)
+    want = np.concatenate([-0.5 * np.asarray(jg.cov_inv).T, mi.T], axis=0)
+    want = np.asarray(jnp.asarray(want * ck.LOG2_E, jnp.float32)
+                      .astype(jnp.bfloat16).astype(jnp.float32))
+    np.testing.assert_array_equal(b_rows, want)
+    np.testing.assert_allclose(np_of(bt[14]),
+                               np_of(ck.kernel_params(tg)[14]) * ck.LOG2_E,
+                               rtol=1e-6)

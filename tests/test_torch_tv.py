@@ -146,3 +146,92 @@ def test_shapes_helpers_match_jax():
         assert tshapes.bucket_len(n) == jshapes.bucket_len(n)
         assert tshapes.bucket_len(n, 64) == jshapes.bucket_len(n, 64)
     assert tshapes.FRAME_BUCKET == jshapes.FRAME_BUCKET
+
+
+# -- T-matrix EM (the training half) -------------------------------------------
+
+ACC_TOL = dict(rtol=1e-4, atol=1e-4)      # accumulators: sums over utterances
+
+
+def _assert_accums_close(got, want):
+    for f in ("a", "c", "r_mat", "r_vec", "n_utts"):
+        g, w = np_of(getattr(got, f)), np_of(getattr(want, f))
+        np.testing.assert_allclose(g, w, rtol=ACC_TOL["rtol"],
+                                   atol=ACC_TOL["atol"] * np.abs(w).max())
+
+
+@pytest.mark.parametrize("chunk", [4, 21, 64])
+def test_tv_e_step_matches_jax(rng, chunk):
+    """Chunks that divide S, equal it and exceed it (zero-weight padding
+    of the last chunk).  Accumulators: rtol 1e-4, atol 1e-4·max|·| (f32
+    sums over 21 utterances of L⁻¹ + wwᵀ)."""
+    jm, tm, js, ts = _case(rng)
+    w_t, acc_t = ttv.tv_e_step(ts, tm, chunk=chunk)
+    w_j, acc_j = jtv.tv_e_step(js, jm, chunk=chunk)
+    np.testing.assert_allclose(np_of(w_t), np_of(w_j), **W_TOL)
+    _assert_accums_close(acc_t, acc_j)
+    assert float(acc_t.n_utts) == 21.0
+    back = convert.tv_accums_from_numpy(**{
+        f: np.asarray(getattr(acc_j, f)) for f in convert.to_numpy(acc_t)})
+    _assert_accums_close(back, acc_j)
+    merged = acc_t.merge(ttv.TvAccums.zeros(tm.rank, tm.n_distrib, tm.dim))
+    _assert_accums_close(merged, acc_j)
+
+
+def test_tv_m_step_and_min_divergence_match_jax(rng):
+    """Both from the same accumulators (the JAX E-step's, as numpy), so
+    only the solve and the whitening are compared: T and means rtol 1e-4,
+    atol 1e-5·max|·| (an f32 batched solve)."""
+    jm, tm, js, _ = _case(rng)
+    _, acc_j = jtv.tv_e_step(js, jm, chunk=8)
+    acc_t = convert.tv_accums_from_numpy(**{
+        f: np.asarray(getattr(acc_j, f))
+        for f in ("a", "c", "r_mat", "r_vec", "n_utts")})
+    for t_mod, j_mod in ((ttv.tv_m_step(tm, acc_t), jtv.tv_m_step(jm, acc_j)),
+                         (ttv.min_divergence(tm, acc_t),
+                          jtv.min_divergence(jm, acc_j))):
+        for f in ("t", "ubm_means", "ubm_inv_var"):
+            want = np_of(getattr(j_mod, f))
+            np.testing.assert_allclose(np_of(getattr(t_mod, f)), want,
+                                       rtol=1e-4,
+                                       atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("min_div", [True, False])
+def test_tv_em_iterations_match_jax(rng, min_div):
+    """Three EM iterations from the same T: rtol 1e-3, atol
+    1e-3·max|·| (chip_smoke.py's i-vector budget), since f32 roundoff of
+    the solves compounds over iterations."""
+    jm, tm, js, ts = _case(rng)
+    for _ in range(3):
+        tm, w_t = ttv.tv_em_iteration(ts, tm, chunk=8, min_div=min_div)
+        jm, w_j = jtv.tv_em_iteration(js, jm, chunk=8, min_div=min_div)
+    for a, b in ((tm.t, jm.t), (tm.ubm_means, jm.ubm_means), (w_t, w_j)):
+        b = np_of(b)
+        np.testing.assert_allclose(np_of(a), b, rtol=1e-3,
+                                   atol=1e-3 * np.abs(b).max())
+
+
+def test_speaker_model_and_llk_check_match_jax(rng):
+    """get_speaker_model (means rtol 1e-5) and the computeLLK check
+    (verify_em_llk, rel 1e-5 on a mean frame llk)."""
+    from lia_ral_tpu.gmm import GmmDiag as JGmm
+
+    jm, tm, js, ts = _case(rng, k=8, d=4, r=3, s=5)
+    w = rng.standard_normal(3).astype(np.float32)
+    wg, mg, cg = (rng.random(8) + 0.5).astype(np.float32), \
+        np.asarray(jm.ubm_means), np.asarray(jm.ubm_inv_var)
+    wg /= wg.sum()
+    jg, tg = JGmm.create(wg, mg, cg), convert.gmm_from_numpy(wg, mg, cg)
+    spk_t = ttv.get_speaker_model(tm, torch.from_numpy(w), tg)
+    spk_j = jtv.get_speaker_model(jm, jnp.asarray(w), jg)
+    np.testing.assert_allclose(np_of(spk_t.means), np_of(spk_j.means),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(np_of(spk_t.weights), wg)
+    x = rng.standard_normal((5, 30, 4)).astype(np.float32)
+    mask = (rng.random((5, 30)) > 0.2).astype(np.float32)
+    got = ttv.verify_em_llk(torch.from_numpy(x), torch.from_numpy(mask), ts,
+                            tm, tg, max_utts=3)
+    want = jtv.verify_em_llk(jnp.asarray(x), jnp.asarray(mask), js, jm, jg,
+                             max_utts=3)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
