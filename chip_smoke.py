@@ -10,9 +10,10 @@ printed as it ends; any failure raises and the exit code is non-zero:
 1. device   the card's name and power limit (nvidia-smi), torch and CUDA
 2. build    nvcc builds the kernels of csrc/ into the ignored build dir
 3. K1       em_stats_fused in every tier (default, fastStats, fastMath,
-            both) against its plain version, K=2048, D=39, 65,536
-            frames, ~5 % zero-weight frames; a rerun reproduces every
-            digit
+            both) against its plain version, ~5 % zero-weight frames, at
+            three shapes: K=2048, D=39, 65,536 frames (the UBM's); K=3,
+            D=1, 2000 frames (the energy VAD's); K=2048, D=39, 10,000
+            frames (a MAP client's); a rerun reproduces every digit
 4. K2       bw_stats_fused in every tier against its plain version,
             K=2048, D=39, S=64 × T=2000, plus T=2060 and T=61, ragged
             masks and an all-zero utterance
@@ -41,11 +42,31 @@ printed as it ends; any failure raises and the exit code is non-zero:
             slice's shapes (1M frames; K2 as 500 × 2000), CUDA events,
             median of 3 after warm-up; the last outputs of each pair are
             held against each other as in phases 3 and 4
+8. gmm-ubm  the GMM-UBM system of configs 1 and 2 at full width: phase
+            6's corpus (seed 0, speakers also differing by per-component
+            offsets) as 500 SPRO4 files with a 40th log-energy column,
+            through ``python -m lia_ral_tpu_torch`` entry points
+            in-process: EnergyDetector (column 39, 3 components, 10
+            iterations) → NormFeat (columns 0-38, file CMVN; featWarp on
+            50 files) → TrainWorld (K=2048, 3 iterations, sessions 0-4)
+            → TrainTarget (MAPOccDep means, r=14, 3 iterations; 40
+            targets and 10 cohort models of 5 sessions) → ComputeTest
+            (top-10; 200 test segments × 40 targets, and the Z, T and
+            ZT lists) → ComputeNorm (ztnorm).  Checks each score file's
+            trial count and finite scores, mean target above mean
+            impostor score raw and ZT-normed, K1 launched by
+            EnergyDetector, TrainWorld and TrainTarget (counts reset
+            before the phase), and, at library level, adapt_model for 5
+            clients through K1 (reproducing TrainTarget's files) against
+            the plain stats path on the card: means within 1e-3·max|μ|,
+            LLRs on 20 test segments within 1e-3.  Prints each tool's
+            wall time, K1's device ms and launches per tool, and the raw
+            and ZT-norm EER.
 
 The line before the last is one JSON object of per-kernel results
-(``launches`` from the main paths of phase 6; ``check_launches`` from
-the comparisons of phases 3, 4 and 7); the last line is
-{"ok": true, "device": {...}}.
+(``launches`` summed over the main paths of phases 6 and 8, by path in
+``launches_by_path``; ``check_launches`` from the comparisons of phases
+3, 4, 7 and 8); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -70,6 +91,7 @@ from lia_ral_tpu_torch import _build
 from lia_ral_tpu_torch.__main__ import main as cli
 from lia_ral_tpu_torch.backend.eval import eer
 from lia_ral_tpu_torch.backend.scoring import cosine_scores
+from lia_ral_tpu_torch.config import Config
 from lia_ral_tpu_torch.convert import gmm_from_numpy
 from lia_ral_tpu_torch.fa.stats import bw_stats_batch
 from lia_ral_tpu_torch.fa.tv import TvModel, estimate_w, init_t
@@ -77,12 +99,16 @@ from lia_ral_tpu_torch.gmm import cuda_kernels as ck
 from lia_ral_tpu_torch.gmm.em import (TrainCfg, default_stats_fn,
                                       mixture_init, train_model)
 from lia_ral_tpu_torch.gmm.kernels import em_stats_chunked
+from lia_ral_tpu_torch.gmm.map_adapt import MapCfg, adapt_model
 from lia_ral_tpu_torch.gmm.model import GmmDiag
-from lia_ral_tpu_torch.io.features import write_feature_file
+from lia_ral_tpu_torch.gmm.scoring import compute_test_llr, stack_gmms
+from lia_ral_tpu_torch.io.features import (read_feature_file,
+                                           write_feature_file)
 from lia_ral_tpu_torch.io.labels import (frame_mask_to_segments,
                                          write_label_file)
-from lia_ral_tpu_torch.io.lists import write_xlist
+from lia_ral_tpu_torch.io.lists import read_xlist, write_xlist
 from lia_ral_tpu_torch.io.nist import read_nist_scores
+from lia_ral_tpu_torch.tools.common import load_features_and_mask
 
 K, D, R = 2048, 39, 400
 N_SPK, UTT_PER_SPK, T_UTT = 50, 10, 2000
@@ -150,9 +176,11 @@ def ragged_mask(rng, s, t, device):
     return torch.from_numpy(m.astype(np.float32)).to(device)
 
 
-def corpus(rng, device):
+def corpus(rng, device, comp_offsets: float = 0.0):
     """Speaker-shifted frames of a 64-component GMM, (S, T, D), with a
-    ragged tail masked per utterance."""
+    ragged tail masked per utterance.  ``comp_offsets`` > 0 also moves
+    each speaker's components by their own offsets of that scale (a
+    speaker difference that survives per-file CMVN, unlike the shift)."""
     s = N_SPK * UTT_PER_SPK
     centers = rng.standard_normal((64, D)).astype(np.float32) * 2.0
     shifts = rng.standard_normal((N_SPK, D)).astype(np.float32) * 0.05
@@ -162,6 +190,10 @@ def corpus(rng, device):
     x += np.repeat(shifts, UTT_PER_SPK, axis=0)[:, None, :]
     lens = T_UTT - rng.integers(0, 200, s)
     mask = (np.arange(T_UTT)[None, :] < lens[:, None]).astype(np.float32)
+    if comp_offsets:
+        offs = rng.standard_normal((N_SPK, 64, D)).astype(np.float32)
+        spk = np.repeat(np.arange(N_SPK), UTT_PER_SPK)[:, None]
+        x += comp_offsets * offs[spk, comp]
     return torch.from_numpy(x).to(device), torch.from_numpy(mask).to(device)
 
 
@@ -284,6 +316,24 @@ def kernel_device_ms(totals):
             totals[name] = totals.get(name, 0.0) + start.elapsed_time(end)
 
 
+def run_tool(tool, args, kernel_ms, device="cuda"):
+    """One tool through the port's CLI entry, in-process.  Returns its
+    wall time (host clock, ending in a device synchronise) and its
+    stdout; adds the device ms of the kernel calls inside it to
+    kernel_ms (on a CUDA device)."""
+    buf = io.StringIO()
+    t1 = time.perf_counter()
+    timer = (kernel_device_ms(kernel_ms) if device == "cuda"
+             else contextlib.nullcontext())
+    with contextlib.redirect_stdout(buf), timer:
+        rc = cli([tool] + args)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    check(rc == 0, f"{tool} exit code {rc}")
+    return wall, buf.getvalue()
+
+
 def run_cli_chain(d, lists, tier, device="cuda", tools=CHAIN):
     """TrainWorld → TotalVariability → IvExtractor → IvTest (or the
     first ``tools``) through the port's CLI entry, with the tier's config
@@ -330,24 +380,234 @@ def run_cli_chain(d, lists, tier, device="cuda", tools=CHAIN):
     for tool, args in steps:
         if tool not in tools:
             continue
-        buf = io.StringIO()
-        t1 = time.perf_counter()
-        timer = (kernel_device_ms(kernel_ms) if device == "cuda"
-                 else contextlib.nullcontext())
-        with contextlib.redirect_stdout(buf), timer:
-            rc = cli([tool] + common + args)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        walls[tool] = time.perf_counter() - t1
-        check(rc == 0, f"{tool} exit code {rc}")
+        walls[tool], stdout = run_tool(tool, common + args, kernel_ms,
+                                       device)
         if tool == "TrainWorld":
             llks = [float(v) for v in
-                    re.findall(r"^it \d+: meanLLK=(\S+)", buf.getvalue(),
-                               re.M)]
+                    re.findall(r"^it \d+: meanLLK=(\S+)", stdout, re.M)]
     scores = (read_nist_scores(os.path.join(out, "scores.nist"))
               if "IvTest" in tools else None)
     return {"llks": llks, "walls": walls, "kernel_ms": kernel_ms,
             "scores": scores}
+
+
+# -- phase 8: the GMM-UBM system of configs 1 and 2 ---------------------------
+
+N_TGT = 40              # target speakers; speakers 40-49 are the cohort
+MAP_CHECK_CLIENTS, MAP_CHECK_SEGS = 5, 20
+
+
+def write_gmm_ubm_corpus(d, device):
+    """Phase 6's corpus (seed 0) with per-speaker component offsets, as
+    500 SPRO4 files of 40 columns: the 39 features and a synthetic
+    log-energy that is low on ~20 % of frames (runs of 10-60 frames and
+    the ragged tail).  No label files: EnergyDetector writes them.
+    Returns the list paths."""
+    xu, mask = corpus(np.random.default_rng(0), device, comp_offsets=0.04)
+    x, speech = xu.cpu().numpy(), mask.cpu().numpy() > 0
+    del xu, mask
+    rng = np.random.default_rng(1)
+    names = []
+    for i in range(x.shape[0]):
+        low = ~speech[i]
+        for start in rng.integers(0, T_UTT - 60, 8):
+            low[start:start + rng.integers(10, 61)] = True
+        energy = np.where(low, rng.normal(-3.0, 0.5, T_UTT),
+                          rng.normal(4.0, 1.0, T_UTT))
+        name = f"spk{i // UTT_PER_SPK:02d}_u{i % UTT_PER_SPK}"
+        write_feature_file(os.path.join(d, name + ".prm"),
+                           np.c_[x[i], energy].astype(np.float32),
+                           fmt="SPRO4")
+        names.append(name)
+    half = UTT_PER_SPK // 2
+    spk = [f"spk{s:02d}" for s in range(N_SPK)]
+    tgt, coh = spk[:N_TGT], spk[N_TGT:]
+
+    def tests(group):
+        return [f"{s}_u{j}" for s in group for j in range(half, UTT_PER_SPK)]
+
+    lines = {"all": [[n] for n in names],
+             "warp": [[n] for n in names[::UTT_PER_SPK]],
+             "world": [[f"{s}_u{j}"] for s in spk for j in range(half)],
+             "models": [[s] + [f"{s}_u{j}" for j in range(half)]
+                        for s in spk],
+             "main": [[t] + tgt for t in tests(tgt)],
+             "z": [[t] + tgt for t in tests(coh)],
+             "t": [[t] + coh for t in tests(tgt)],
+             "zt": [[t] + coh for t in tests(coh)]}
+    paths = {}
+    for key, rows in lines.items():
+        paths[key] = os.path.join(d, key + ".ndx")
+        write_xlist(paths[key], rows)
+    return paths
+
+
+def gmm_ubm_steps(d, lists):
+    """(label, tool, args) of the chain EnergyDetector → NormFeat →
+    TrainWorld → TrainTarget → ComputeTest (four lists) → ComputeNorm."""
+    raw = ["--loadFeatureFileExtension", ".prm", "--addDefaultLabel", "true",
+           "--defaultLabel", "speech"]
+    steps = [
+        ("EnergyDetector", "EnergyDetector",
+         raw + ["--inputFeatureFilename", lists["all"],
+                "--featureServerMask", str(D), "--nbTrainIt", "10",
+                "--mixtureDistribCount", "3"]),
+        ("NormFeat", "NormFeat",
+         raw + ["--inputFeatureFilename", lists["all"],
+                "--featureServerMask", f"0-{D - 1}", "--mode", "norm",
+                "--segmentalMode", "file",
+                "--saveFeatureFileExtension", ".norm.prm"]),
+        ("NormFeat[featWarp]", "NormFeat",
+         raw + ["--inputFeatureFilename", lists["warp"],
+                "--featureServerMask", f"0-{D - 1}", "--mode", "featWarp",
+                "--saveFeatureFileExtension", ".warp.prm"]),
+        ("TrainWorld", "TrainWorld",
+         ["--inputFeatureFilename", lists["world"],
+          "--mixtureDistribCount", str(K), "--nbTrainIt", "3",
+          "--baggedFrameProbability", "1.0", "--initVarianceFlooring", "0.5",
+          "--finalVarianceFlooring", "0.1", "--initVarianceCeiling", "10.0",
+          "--finalVarianceCeiling", "10.0", "--randomSeed", "0",
+          "--outputWorldFilename", "wld"]),
+        ("TrainTarget", "TrainTarget",
+         ["--targetIdList", lists["models"], "--inputWorldFilename", "wld",
+          "--MAPAlgo", "MAPOccDep", "--meanAdapt", "true",
+          "--MAPRegFactorMean", "14", "--nbTrainIt", "3"]),
+    ]
+    for lst in ("main", "z", "t", "zt"):
+        steps.append((f"ComputeTest[{lst}]", "ComputeTest",
+                      ["--ndxFilename", lists[lst], "--inputWorldFilename",
+                       "wld", "--topDistribsCount", "10",
+                       "--outputFilename", os.path.join(d, lst + ".nist")]))
+    steps.append(("ComputeNorm", "ComputeNorm",
+                  ["--normType", "ztnorm",
+                   "--testNistFile", os.path.join(d, "main.nist"),
+                   "--znormNistFile", os.path.join(d, "z.nist"),
+                   "--tnormNistFile", os.path.join(d, "t.nist"),
+                   "--ztnormNistFile", os.path.join(d, "zt.nist"),
+                   "--outputFileBaseName", os.path.join(d, "ztnorm.nist")]))
+    return steps
+
+
+def check_map_library(d, dev):
+    """``adapt_model`` for the first clients from the chain's UBM, once
+    through K1 and once through the plain stats path on the card: the
+    K1 run reproduces TrainTarget's model files, the plain run's means
+    agree within 1e-3·max|μ|, and so do their LLRs on test segments
+    (within 1e-3).  Returns (max |Δμ|, max|μ|, max |ΔLLR|)."""
+    cfg = Config({"featureFilesPath": d + "/", "labelFilesPath": d + "/",
+                  "loadFeatureFileFormat": "SPRO4",
+                  "loadFeatureFileExtension": ".norm.prm",
+                  "labelSelectedFrames": "speech"})
+    world = GmmDiag.load(os.path.join(d, "wld.gmm"), device=dev)
+    mcfg = MapCfg(method="MAPOccDep", mean_adapt=True, mean_r=14.0,
+                  nb_train_it=3)
+    half = UTT_PER_SPK // 2
+    fused, plain = [], []
+    for s in range(MAP_CHECK_CLIENTS):
+        fs, m = load_features_and_mask([f"spk{s:02d}_u{j}"
+                                        for j in range(half)], cfg)
+        x = torch.as_tensor(fs.data, device=dev)
+        w = torch.as_tensor(m, device=dev)
+        fused.append(adapt_model(torch.Generator(dev).manual_seed(s), x, w,
+                                 world, mcfg))
+        plain.append(adapt_model(torch.Generator(dev).manual_seed(s), x, w,
+                                 world, mcfg,
+                                 stats_fn=ck.em_stats_reference))
+        chain = GmmDiag.load(os.path.join(d, f"spk{s:02d}.gmm"), device=dev)
+        check(torch.equal(fused[-1].means, chain.means),
+              f"adapt_model through K1 reproduces TrainTarget's spk{s:02d}")
+    dmu = max(float((a.means - b.means).abs().max())
+              for a, b in zip(fused, plain))
+    mu_max = max(float(b.means.abs().max()) for b in plain)
+    check(dmu <= 1e-3 * mu_max, f"K1 and plain MAP means within 1e-3·max "
+          f"(|Δμ| {dmu:.3e}, max|μ| {mu_max:.3e})")
+    dllr = 0.0
+    for i in range(MAP_CHECK_SEGS):
+        seg = f"spk{i // 4:02d}_u{half + i % 4}"
+        fs, m = load_features_and_mask([seg], cfg)
+        x = torch.as_tensor(fs.data[m > 0], device=dev)
+        w = torch.ones(x.shape[0], device=dev)
+        a, b = (compute_test_llr(x, w, world, stack_gmms(c), top_k=10)
+                for c in (fused, plain))
+        dllr = max(dllr, float((a - b).abs().max()))
+    check(dllr <= 1e-3, f"K1 and plain MAP clients' LLRs within 1e-3 "
+          f"({dllr:.3e})")
+    return dmu, mu_max, dllr
+
+
+def run_gmm_ubm(kernels, dev) -> None:
+    """Phase 8: the GMM-UBM chain at full width on 500 files, K1's launch
+    counts and device ms per tool, the scores' checks and EERs, then the
+    library-level MAP check."""
+    d = tempfile.mkdtemp(prefix="lia_chip_smoke_gu_")
+    try:
+        lists = write_gmm_ubm_corpus(d, dev)
+        common = ["--torchDevice", dev.type, "--featureFilesPath", d + "/",
+                  "--labelFilesPath", d + "/", "--mixtureFilesPath", d + "/",
+                  "--loadFeatureFileFormat", "SPRO4",
+                  "--saveFeatureFileFormat", "SPRO4",
+                  "--loadFeatureFileExtension", ".norm.prm",
+                  "--labelSelectedFrames", "speech"]
+        walls, k1_ms, k1_launches = {}, {}, {}
+        ck.reset_launch_counts()
+        for label, tool, args in gmm_ubm_steps(d, lists):
+            before = dict(ck.launch_counts)
+            kms = {}
+            walls[label], _ = run_tool(tool, common + args, kms, dev.type)
+            k1_ms[label] = kms.get("em_stats_fused", 0.0)
+            k1_launches[label] = (ck.launch_counts["em_stats_fused"]
+                                  - before["em_stats_fused"])
+        launches = dict(ck.launch_counts)
+        print("  gmm-ubm: tool wall s " + ", ".join(
+            f"{k} {v:.3f}" for k, v in walls.items()))
+        print("  gmm-ubm: K1 device ms (launches) " + ", ".join(
+            f"{k} {k1_ms[k]:.2f} ({k1_launches[k]})" for k in walls
+            if k1_launches[k]))
+        print(f"  gmm-ubm: launches {launches}")
+        for tool in ("EnergyDetector", "TrainTarget", "TrainWorld"):
+            check(k1_launches[tool] > 0, f"K1 launched by {tool}")
+        check(all(v == 0 for k, v in launches.items()
+                  if k != "em_stats_fused"),
+              "only the default K1 launched on the GMM-UBM path")
+        n_trials = {"main": N_TGT * N_TGT * 5, "z": N_TGT * 50,
+                    "t": 10 * N_TGT * 5, "zt": 500, "ztnorm": N_TGT * N_TGT * 5}
+        scores = {}
+        for name, n in n_trials.items():
+            lines = read_nist_scores(os.path.join(d, name + ".nist"))
+            check(len(lines) == n, f"{name} score file has {n} lines "
+                  f"({len(lines)})")
+            sc = np.array([r.score for r in lines])
+            check(bool(np.isfinite(sc).all()), f"{name} scores finite")
+            scores[name] = (sc, np.array([r.seg.split("_")[0] == r.model
+                                          for r in lines]))
+        for name in ("main", "ztnorm"):
+            sc, tgt = scores[name]
+            check(int(tgt.sum()) == N_TGT * 5, f"{name}: 200 target trials")
+            print(f"  gmm-ubm [{name}]: mean target LLR "
+                  f"{sc[tgt].mean():.4f}, impostor {sc[~tgt].mean():.4f}; "
+                  f"EER {100 * eer(sc[tgt], sc[~tgt]):.2f} % over "
+                  f"{tgt.sum()} target / {(~tgt).sum()} impostor trials")
+            check(sc[tgt].mean() > sc[~tgt].mean(),
+                  f"{name}: mean target score above mean impostor score")
+        warp = [os.path.join(d, n[0] + ".warp.prm")
+                for n in read_xlist(lists["warp"])]
+        for path in warp:
+            y = read_feature_file(path, fmt="SPRO4").data
+            check(y.shape == (T_UTT, D) and bool(np.isfinite(y).all()),
+                  f"featWarp output {path}")
+        ck.reset_launch_counts()
+        dmu, mu_max, dllr = check_map_library(d, dev)
+        print(f"  gmm-ubm: adapt_model K1 vs plain stats on the card, "
+              f"{MAP_CHECK_CLIENTS} clients: max|Δμ| {dmu:.3e} (max|μ| "
+              f"{mu_max:.3e}); max|ΔLLR| {dllr:.3e} over "
+              f"{MAP_CHECK_SEGS} test segments")
+        for kname, kv in kernels.items():
+            kv["launches_by_path"] = {"cli-ivector": kv["launches"],
+                                      "gmm-ubm": launches[kname]}
+            kv["launches"] += launches[kname]
+            kv["check_launches"] += ck.launch_counts[kname]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 def cuda_ms(fn) -> float:
@@ -414,40 +674,45 @@ def main() -> int:
                                 "source": SOURCE, "replaces": REPLACES[k]}
                for k in REPLACES for tier in TIERS}
 
-    # 3. K1 vs its plain version, every tier
+    # 3. K1 vs its plain version, every tier: at the UBM's shape, at the
+    # energy VAD's (K=3, D=1) and at one MAP client's (10,000 frames)
     t0 = time.perf_counter()
     gmm = random_gmm(rng, K, D, dev)
-    n = 65536
-    x = torch.from_numpy(rng.standard_normal((n, D), dtype=np.float32)
-                         ).to(dev)
-    w = rng.random(n).astype(np.float32)
-    w[rng.random(n) < 0.05] = 0.0
-    w = torch.from_numpy(w).to(dev)
-    default_plain = ck.em_stats_reference(x, w, gmm)
-    for tier, (cdt, sp) in TIERS.items():
-        ename = entry("em_stats_fused", tier)
-        got = ck.em_stats_fused(x, w, gmm, compute_dtype=cdt, stats_pass=sp)
-        torch.cuda.synchronize()
-        want = ck.em_stats_reference(x, w, gmm, compute_dtype=cdt,
-                                     stats_pass=sp)
-        rs = sum_rtol(tier)
-        err = check_stats(f"K1 {ename}",
-                          [("n", got.n, want.n, 1e-4),
-                           ("sum_x", got.sum_x, want.sum_x, rs),
-                           ("sum_xx", got.sum_xx, want.sum_xx, rs)],
-                          (got.llk[None], want.llk[None]))
-        check(abs(float(got.count) - float(want.count))
-              <= 1e-6 * float(want.count), f"K1 {ename} count")
-        if tier:
-            check_rounding(f"K1 {ename}", got.sum_x, want.sum_x,
-                           default_plain.sum_x)
-        again = ck.em_stats_fused(x, w, gmm, compute_dtype=cdt,
-                                  stats_pass=sp)
-        check(all(torch.equal(a, b) for a, b in zip(
-            (again.n, again.sum_x, again.sum_xx, again.llk),
-            (got.n, got.sum_x, got.sum_xx, got.llk))),
-            f"K1 {ename} rerun reproduces every digit")
-        kernels[ename]["max_abs_err"] = err
+    for n, gk, gd in ((65536, K, D), (2000, 3, 1), (10000, K, D)):
+        g = gmm if gk == K else random_gmm(rng, gk, gd, dev)
+        x = torch.from_numpy(rng.standard_normal((n, gd), dtype=np.float32)
+                             ).to(dev)
+        w = rng.random(n).astype(np.float32)
+        w[rng.random(n) < 0.05] = 0.0
+        w = torch.from_numpy(w).to(dev)
+        default_plain = ck.em_stats_reference(x, w, g)
+        for tier, (cdt, sp) in TIERS.items():
+            ename = entry("em_stats_fused", tier)
+            label = f"K1 {ename} N={n} K={gk} D={gd}"
+            got = ck.em_stats_fused(x, w, g, compute_dtype=cdt,
+                                    stats_pass=sp)
+            torch.cuda.synchronize()
+            want = ck.em_stats_reference(x, w, g, compute_dtype=cdt,
+                                         stats_pass=sp)
+            rs = sum_rtol(tier)
+            err = check_stats(label,
+                              [("n", got.n, want.n, 1e-4),
+                               ("sum_x", got.sum_x, want.sum_x, rs),
+                               ("sum_xx", got.sum_xx, want.sum_xx, rs)],
+                              (got.llk[None], want.llk[None]))
+            check(abs(float(got.count) - float(want.count))
+                  <= 1e-6 * float(want.count), f"{label} count")
+            if tier:
+                check_rounding(label, got.sum_x, want.sum_x,
+                               default_plain.sum_x)
+            again = ck.em_stats_fused(x, w, g, compute_dtype=cdt,
+                                      stats_pass=sp)
+            check(all(torch.equal(a, b) for a, b in zip(
+                (again.n, again.sum_x, again.sum_xx, again.llk),
+                (got.n, got.sum_x, got.sum_xx, got.llk))),
+                f"{label} rerun reproduces every digit")
+            kernels[ename]["max_abs_err"] = max(
+                kernels[ename].get("max_abs_err", 0.0), err)
     phase("K1 vs plain", t0)
 
     # 4. K2 vs its plain version, every tier
@@ -683,6 +948,11 @@ def main() -> int:
               f"{kv['plain_ms']:.3f} ms (N={xf.shape[0]} frames, K={K}, "
               f"D={D}; K2 as {N_SPK * UTT_PER_SPK} x {T_UTT})")
     phase("timing", t0)
+
+    # 8. the GMM-UBM system of configs 1 and 2 at full width
+    t0 = time.perf_counter()
+    run_gmm_ubm(kernels, dev)
+    phase("gmm-ubm", t0)
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

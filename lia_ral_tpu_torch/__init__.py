@@ -4,7 +4,8 @@ The JAX package ``lia_ral_tpu`` stays the reference; each module here
 mirrors one module there and is tested against it on the same inputs.
 The port imports torch and numpy only, never jax, flax or lia_ral_tpu.
 
-Ported so far (the GMM-UBM -> Baum-Welch -> i-vector slice):
+Ported so far (the GMM-UBM system and the GMM-UBM -> Baum-Welch ->
+i-vector slice, with their CLI tools under ``tools``):
 
 - ``gmm.model``        GmmDiag
 - ``gmm.kernels``      EmStats, log-densities, posteriors, plain EM stats
@@ -12,9 +13,13 @@ Ported so far (the GMM-UBM -> Baum-Welch -> i-vector slice):
                        (per-utterance Baum-Welch stats), with their plain
                        PyTorch versions
 - ``gmm.em``           UBM EM training
+- ``gmm.map_adapt``    MAP / MLLR target adaptation
+- ``gmm.scoring``      top-K GMM-UBM LLR scoring
+- ``frontend``         CMVN, feature warping and mapping; energy VAD
 - ``fa.stats``         Baum-Welch (N, F) stats
 - ``fa.tv``            TotalVariability model, exact i-vector extraction
-- ``backend.scoring``  cosine scoring; ``backend.eval`` EER / minDCF
+- ``backend.scoring``  cosine scoring; ``backend.eval`` EER / minDCF;
+                       ``backend.norm`` z/t/zt/tz-norm
 - ``convert``          JAX-package parameters (as numpy) <-> port state
 
 Every function takes its device from its input tensors; the package never

@@ -2,9 +2,10 @@
 (port of lia_ral_tpu/__main__.py).
 
 The tool names are the reference binaries' (and the JAX package's
-``TOOLS``).  The port runs the i-vector chain TrainWorld →
-TotalVariability → IvExtractor → IvTest; every other tool prints that it
-is not ported yet and exits 2.  Config key ``torchDevice`` (default
+``TOOLS``).  The port runs the GMM-UBM chain EnergyDetector → NormFeat →
+TrainWorld → TrainTarget → ComputeTest → ComputeNorm and the i-vector
+chain TrainWorld → TotalVariability → IvExtractor → IvTest; every other
+tool prints that it is not ported yet and exits 2.  Config key ``torchDevice`` (default
 ``cuda``) names the device.
 """
 
@@ -14,13 +15,17 @@ import sys
 
 # tool name → module under tools/ (None: not ported yet)
 TOOLS: dict[str, str | None] = {
+    "NormFeat": "norm_feat",
+    "EnergyDetector": "energy_detector",
     "TrainWorld": "train_world",
+    "TrainTarget": "train_target",
+    "ComputeTest": "compute_test",
+    "ComputeNorm": "compute_norm",
     "TotalVariability": "total_variability",
     "IvExtractor": "iv_extractor",
     "IvTest": "iv_test",
     **{name: None for name in (
-        "NormFeat", "EnergyDetector", "TrainTarget", "ComputeTest",
-        "ComputeNorm", "IvNorm", "PLDA", "SpkAdapt", "ComputeJFAStats",
+        "IvNorm", "PLDA", "SpkAdapt", "ComputeJFAStats",
         "ComputeTVStats", "EigenVoice", "EigenChannel", "EstimateDMatrix",
         "AcousticSegmentation", "TurnDetection", "Segmentation",
         "ReSegmentation", "Scoring", "FusionScore", "ScoreWarp", "Hist",

@@ -28,6 +28,14 @@ def gmm_from_numpy(weights, means, cov_inv, device=None) -> GmmDiag:
                    _t(cov_inv, device))
 
 
+def gmms_from_numpy(gmms, device=None) -> GmmDiag:
+    """Same-shape GMMs, each a (weights, means, cov_inv) triple of arrays,
+    as one stacked client GmmDiag with a leading C axis (the layout of
+    ``gmm.scoring.stack_gmms``)."""
+    w, m, ci = zip(*gmms)
+    return gmm_from_numpy(np.stack(w), np.stack(m), np.stack(ci), device)
+
+
 def tv_from_numpy(t, ubm_means, ubm_inv_var, device=None) -> TvModel:
     return TvModel(_t(t, device), _t(ubm_means, device),
                    _t(ubm_inv_var, device))

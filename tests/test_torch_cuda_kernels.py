@@ -47,7 +47,9 @@ def _close(got, want, rtol):
 
 @pytest.mark.parametrize("n,k,d,chunk", [(65536, 2048, 39, 8192),
                                          (1000, 37, 13, 256),
-                                         (777, 64, 60, 100)])
+                                         (777, 64, 60, 100),
+                                         (2000, 3, 1, 8192),
+                                         (10000, 2048, 39, 8192)])
 def test_k1_cuda_matches_plain(cuda_device, n, k, d, chunk):
     rng = np.random.default_rng(5)
     tg = _gmm(1, k, d, cuda_device)
@@ -189,3 +191,41 @@ def test_cuda_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         ck.em_stats_fused(torch.zeros((16, 65), device=cuda_device), w,
                           _gmm(3, 8, 65, cuda_device))     # D above 64
+
+
+def test_gmm_ubm_path_runs_k1_on_cuda(cuda_device):
+    """MAP adaptation (K1 at a client's shape) and the energy VAD (K1 at
+    K=3, D=1) launch K1 on CUDA tensors and agree with their CPU runs
+    (the plain path); top-K scoring on the card agrees with the CPU to
+    1e-4 in the LLR."""
+    from lia_ral_tpu_torch.frontend.energy_vad import (EnergyDetectorCfg,
+                                                        energy_detector)
+    from lia_ral_tpu_torch.gmm.map_adapt import MapCfg, adapt_model
+    from lia_ral_tpu_torch.gmm.scoring import compute_test_llr, stack_gmms
+
+    rng = np.random.default_rng(11)
+    world = _gmm(4, 256, 20, "cpu")
+    x = torch.from_numpy(rng.standard_normal((6000, 20), dtype=np.float32))
+    w = torch.ones(6000)
+    cfg = MapCfg(nb_train_it=2)
+    before = ck.launch_counts["em_stats_fused"]
+    got = adapt_model(torch.Generator(cuda_device), x.to(cuda_device),
+                      w.to(cuda_device), world.to(cuda_device), cfg)
+    assert ck.launch_counts["em_stats_fused"] == before + 2
+    want = adapt_model(torch.Generator(), x, w, world, cfg)
+    _close(got.means, want.means, 1e-4)
+
+    energy = np.where(rng.random(3000) < 0.3, rng.normal(-3, 0.5, 3000),
+                      rng.normal(2, 1, 3000)).astype(np.float32)
+    ew = np.ones(3000, np.float32)
+    before = ck.launch_counts["em_stats_fused"]
+    speech = energy_detector(energy, ew, EnergyDetectorCfg(),
+                             device=cuda_device)
+    assert ck.launch_counts["em_stats_fused"] == before + 10
+    assert (speech == energy_detector(energy, ew, EnergyDetectorCfg())).all()
+
+    clients = stack_gmms([want, world])
+    llr = compute_test_llr(x[:2000].to(cuda_device), w[:2000].to(cuda_device),
+                           world.to(cuda_device), clients.to(cuda_device))
+    _close(llr.cpu(), compute_test_llr(x[:2000], w[:2000], world, clients),
+           1e-4)

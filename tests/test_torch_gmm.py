@@ -423,6 +423,18 @@ def test_port_imports_no_jax():
         "import lia_ral_tpu_torch.tools.iv_extractor\n"
         "import lia_ral_tpu_torch.tools.iv_test\n"
         "import lia_ral_tpu_torch.tools.iv_norm\n"
+        "import lia_ral_tpu_torch.gmm.map_adapt\n"
+        "import lia_ral_tpu_torch.gmm.scoring\n"
+        "import lia_ral_tpu_torch.backend.norm\n"
+        "import lia_ral_tpu_torch.backend.unsupervised\n"
+        "import lia_ral_tpu_torch.frontend\n"
+        "import lia_ral_tpu_torch.frontend.energy_vad\n"
+        "import lia_ral_tpu_torch.frontend.normfeat\n"
+        "import lia_ral_tpu_torch.tools.train_target\n"
+        "import lia_ral_tpu_torch.tools.compute_test\n"
+        "import lia_ral_tpu_torch.tools.compute_norm\n"
+        "import lia_ral_tpu_torch.tools.energy_detector\n"
+        "import lia_ral_tpu_torch.tools.norm_feat\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"

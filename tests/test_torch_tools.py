@@ -67,6 +67,7 @@ from lia_ral_tpu_torch.tools import total_variability as t_total_variability
 from lia_ral_tpu_torch.tools import train_world as t_train_world
 
 from _torch_parity import random_gmm_np
+from tests.conftest import REFERENCE, requires_reference
 
 DIM, K, RANK, N_SPK, SESS = 8, 16, 4, 12, 3
 
@@ -330,6 +331,15 @@ def test_main_dispatch(tmp_path, capsys):
     assert tmain.main(["PLDA"]) == 2
     assert "not ported" in capsys.readouterr().err
     assert tmain.main(["NoSuchTool"]) == 2
+    import importlib
+    for name, mod in (("EnergyDetector", "energy_detector"),
+                      ("NormFeat", "norm_feat"),
+                      ("TrainTarget", "train_target"),
+                      ("ComputeTest", "compute_test"),
+                      ("ComputeNorm", "compute_norm")):
+        assert tmain.TOOLS[name] == mod
+        assert callable(importlib.import_module(
+            f"lia_ral_tpu_torch.tools.{mod}").main)
     # a ported tool through the CLI entry, with binary score output
     work = str(tmp_path)
     from lia_ral_tpu_torch.io.matrix import write_matrix_file
@@ -363,3 +373,539 @@ def test_main_dispatch(tmp_path, capsys):
                                rtol=1e-6)
     np.testing.assert_allclose(mat[1, 1], want[("model1", "test_s1")],
                                rtol=1e-6)
+    # ComputeNorm through the CLI entry: t-norm of those scores by two
+    # impostor models
+    from lia_ral_tpu_torch.io.nist import ScoreLine, write_nist_scores
+    write_nist_scores(os.path.join(work, "main.nist"),
+                      [ScoreLine("M", m, "1", t, want[(m, t)])
+                       for (m, t) in want])
+    imp = [ScoreLine("M", f"imp{i}", "0", t, 0.1 * i - 0.3 * j)
+           for i in range(2) for j, t in enumerate(["test_s0", "test_s1"])]
+    write_nist_scores(os.path.join(work, "imp.nist"), imp)
+    assert tmain.main(["ComputeNorm", "--torchDevice", "cpu",
+                       "--normType", "tnorm",
+                       "--testNistFile", os.path.join(work, "main.nist"),
+                       "--tnormNistFile", os.path.join(work, "imp.nist"),
+                       "--outputFileBaseName",
+                       os.path.join(work, "tn.nist")]) == 0
+    tn = read_nist_scores(os.path.join(work, "tn.nist"))
+    assert len(tn) == len(want)
+    for r in tn:
+        seg = [x.score for x in imp if x.seg == r.seg]
+        np.testing.assert_allclose(
+            r.score, (want[(r.model, r.seg)] - np.mean(seg)) / np.std(seg),
+            rtol=1e-4)
+
+
+# -- the GMM-UBM chain (configs 1 and 2) --------------------------------------
+#
+# EnergyDetector → NormFeat → TrainWorld → TrainTarget → ComputeTest →
+# ComputeNorm through both packages' tools, each in its own directory on
+# copies of one corpus: 12 speakers (8 targets, 4 cohort) × 3 sessions of
+# 400 frames, D=10 features plus a log-energy column that is low on ~20 %
+# of frames; speakers differ by per-component offsets.  No side draws
+# random numbers (a shared init UBM, baggedFrameProbability 1).
+#
+# Tolerances: speech labels identical; normalised features atol 1e-5
+# (f32 CMVN, as tests/test_torch_gmm_ubm.py); UBM and client models
+# rtol 1e-4, atol 1e-4·max (the port's EM budget; MAP adds one f32
+# interpolation per iteration); every trial score |Δ| ≤ 1e-4 (LLRs of
+# O(1) from means of per-frame llks of O(10), and the score file's
+# 6 significant digits); normalised scores |Δ| ≤ 1e-3 + 1e-4·|score|
+# (z- and t-norm divide by the std of 4 impostor scores, as small as
+# O(0.01), so scores reach O(100) and carry the inputs' error times
+# 1/std; measured |Δ| 7.5e-3 on a ZT-norm score of 169); with worldDecime
+# 2 and top-5, |Δ| ≤ 1e-2: the world's stale-set frames inherit the
+# ill-conditioned residual log(exp(full) − exp(top)) of the JAX formula
+# (ROADMAP queue 3; the per-frame budget is in
+# tests/test_torch_gmm_ubm.py; measured 2.5e-3).
+
+GU_DIM, GU_K, GU_SPK, GU_TGT, GU_SESS, GU_T = 10, 16, 12, 8, 3, 400
+SCORE_ATOL, NORM_ATOL, DECIME_ATOL = 1e-4, 1e-3, 1e-2
+
+
+@pytest.fixture(scope="module")
+def gu_corpus(tmp_path_factory):
+    """Raw feature files (D+1 columns, energy last), the lists, and the
+    shared init UBM, in one directory that each run copies."""
+    d = str(tmp_path_factory.mktemp("torch_gmmubm"))
+    rng = np.random.default_rng(21)
+    centers = rng.standard_normal((GU_K, GU_DIM)) * 2
+    # per-speaker offsets of each component (a constant per-file shift
+    # would not survive file CMVN); a per-session shift as the channel
+    shift = rng.standard_normal((GU_SPK, GU_K, GU_DIM)) * 0.5
+    names = []
+    for s in range(GU_SPK):
+        for j in range(GU_SESS):
+            comp = rng.integers(0, GU_K, GU_T)
+            x = (centers[comp] + shift[s, comp]
+                 + rng.standard_normal((GU_T, GU_DIM)) * 0.6 + j * 0.3)
+            low = np.zeros(GU_T, bool)
+            for start in rng.integers(0, GU_T - 20, 4):
+                low[start:start + 20] = True
+            energy = np.where(low, rng.normal(-3.0, 0.5, GU_T),
+                              rng.normal(4.0, 1.0, GU_T))
+            name = f"spk{s:02d}_s{j}"
+            write_feature_file(os.path.join(d, name + ".prm"),
+                               np.c_[x, energy].astype(np.float32),
+                               fmt="SPRO4")
+            names.append(name)
+    spk = [f"spk{s:02d}" for s in range(GU_SPK)]
+    tgt, coh = spk[:GU_TGT], spk[GU_TGT:]
+    lists = {"all": [[n] for n in names],
+             "world": [[f"{s}_s{j}"] for s in spk for j in (0, 1)],
+             "models": [[s, f"{s}_s0", f"{s}_s1"] for s in spk],
+             "main": [[f"{s}_s2"] + tgt for s in tgt],
+             "z": [[f"{s}_s2"] + tgt for s in coh],
+             "t": [[f"{s}_s2"] + coh for s in tgt],
+             "zt": [[f"{s}_s2"] + coh for s in coh]}
+    for key, lines in lists.items():
+        write_xlist(os.path.join(d, key + ".ndx"), lines)
+    w, m, ci = random_gmm_np(rng, GU_K, GU_DIM)
+    JGmm.create(w, centers.astype(np.float32), ci * 0.5).save(
+        os.path.join(d, "init.gmm"))
+    return d
+
+
+def _gu_tools(pkg):
+    if pkg == "jax":
+        from lia_ral_tpu.tools import (compute_norm, compute_test,
+                                       energy_detector, norm_feat,
+                                       train_target)
+        return JConfig, dict(EnergyDetector=energy_detector,
+                             NormFeat=norm_feat, TrainWorld=j_train_world,
+                             TrainTarget=train_target,
+                             ComputeTest=compute_test,
+                             ComputeNorm=compute_norm)
+    from lia_ral_tpu_torch.tools import (compute_norm, compute_test,
+                                         energy_detector, norm_feat,
+                                         train_target)
+    return TConfig, dict(EnergyDetector=energy_detector, NormFeat=norm_feat,
+                         TrainWorld=t_train_world, TrainTarget=train_target,
+                         ComputeTest=compute_test, ComputeNorm=compute_norm)
+
+
+def _gu_config(cls, d, work, **extra):
+    cfg = cls({
+        "featureFilesPath": work + "/", "labelFilesPath": work + "/",
+        "mixtureFilesPath": work + "/", "lstPath": d + "/",
+        "loadFeatureFileFormat": "SPRO4", "saveFeatureFileFormat": "SPRO4",
+        "loadFeatureFileExtension": ".norm.prm",
+        "saveMixtureFileFormat": "RAW", "saveMixtureFileExtension": ".gmm",
+        "loadMixtureFileExtension": ".gmm",
+        "labelSelectedFrames": "speech", "torchDevice": "cpu"})
+    cfg.update(extra)
+    return cfg
+
+
+GU_TESTS = {
+    "plain": {},
+    "segmental": {"segmentalMode": "segmentLLR"},
+    "window": {"windowLLR": "true", "windowLLRSize": 50,
+               "windowLLRDec": 25},
+    "byLabel": {"computeTestMode": "byLabel"},
+    "histo": {"computeTestMode": "histo"},
+    "histo_mean": {"computeTestMode": "histo", "scoreType": "mean"},
+    "decime": {"worldDecime": 2, "topDistribsCount": 5},
+}
+GU_NORMS = {"ztnorm": {}, "znorm_median": {"normType": "znorm",
+                                          "meanMode": "1"},
+            "tnorm_trim": {"normType": "tnorm", "percentH": 0.25},
+            "tznorm": {"normType": "tznorm"}}
+
+
+def _run_gmm_ubm_chain(pkg, d, work):
+    """The chain through one package's tools; returns the ComputeTest and
+    ComputeNorm results by name."""
+    cls, tool = _gu_tools(pkg)
+    os.makedirs(work)
+    for f in os.listdir(d):
+        if f.endswith((".prm", ".gmm")):
+            shutil.copy(os.path.join(d, f), work)
+
+    def cfg(**extra):
+        return _gu_config(cls, d, work, **extra)
+
+    tool["EnergyDetector"].main(cfg(
+        inputFeatureFilename="all.ndx", loadFeatureFileExtension=".prm",
+        featureServerMask=str(GU_DIM), addDefaultLabel="true",
+        defaultLabel="speech", nbTrainIt=10, mixtureDistribCount=3,
+        alpha=0.25))
+    tool["NormFeat"].main(cfg(
+        inputFeatureFilename="all.ndx", loadFeatureFileExtension=".prm",
+        featureServerMask=f"0-{GU_DIM - 1}", mode="norm",
+        segmentalMode="file", saveFeatureFileExtension=".norm.prm"))
+    tool["TrainWorld"].main(cfg(
+        inputFeatureFilename="world.ndx", inputWorldFilename="init",
+        outputWorldFilename="wld", mixtureDistribCount=GU_K, nbTrainIt=3,
+        baggedFrameProbability=1.0, initVarianceFlooring=0.5,
+        finalVarianceFlooring=0.1))
+    tool["TrainTarget"].main(cfg(
+        targetIdList=os.path.join(d, "models.ndx"), inputWorldFilename="wld",
+        MAPAlgo="MAPOccDep", meanAdapt="true", MAPRegFactorMean=14.0,
+        nbTrainIt=3, baggedFrameProbability=1.0))
+    out = {}
+    for lst in ("main", "z", "t", "zt"):
+        out[lst] = tool["ComputeTest"].main(cfg(
+            ndxFilename=os.path.join(d, lst + ".ndx"),
+            inputWorldFilename="wld", topDistribsCount=10,
+            outputFilename=os.path.join(work, lst + ".nist")))
+    for name, extra in GU_TESTS.items():
+        if name != "plain":
+            out[name] = tool["ComputeTest"].main(cfg(**dict(
+                dict(ndxFilename=os.path.join(d, "main.ndx"),
+                     inputWorldFilename="wld", topDistribsCount=10,
+                     outputFilename=os.path.join(work, name + ".nist")),
+                **extra)))
+    for name, extra in GU_NORMS.items():
+        out[name] = tool["ComputeNorm"].main(cfg(**dict(dict(
+            normType="ztnorm",
+            testNistFile=os.path.join(work, "main.nist"),
+            znormNistFile=os.path.join(work, "z.nist"),
+            tnormNistFile=os.path.join(work, "t.nist"),
+            ztnormNistFile=os.path.join(work, "zt.nist"),
+            outputFileBaseName=os.path.join(work, name + ".nist")), **extra)))
+    return out
+
+
+def _trial_keys(lines):
+    return [(r.model, r.seg, r.begin, r.end, r.decision) for r in lines]
+
+
+def test_gmm_ubm_chain_matches_jax(gu_corpus, tmp_path):
+    d = gu_corpus
+    before = dict(launch_counts)
+    res = {pkg: _run_gmm_ubm_chain(pkg, d, str(tmp_path / pkg))
+           for pkg in ("jax", "torch")}
+    assert launch_counts == before          # CPU tensors: plain versions
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
+    names = [f"spk{s:02d}_s{j}" for s in range(GU_SPK)
+             for j in range(GU_SESS)]
+    from lia_ral_tpu_torch.io.labels import read_label_file
+    n_speech = 0
+    for n in names:
+        lt = read_label_file(os.path.join(tdir, n + ".lbl"))
+        assert lt == read_label_file(os.path.join(jdir, n + ".lbl"))
+        n_speech += sum(s.end - s.begin for s in lt) / 0.01
+        from lia_ral_tpu_torch.io.features import read_feature_file
+        a, b = (read_feature_file(os.path.join(w, n + ".norm.prm"),
+                                  fmt="SPRO4").data for w in (tdir, jdir))
+        assert a.shape == (GU_T, GU_DIM)
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+    # the energy VAD kept part of the frames (meanStd keeps the frames
+    # above the top component's mean − α·σ: ~40 % here)
+    assert 0.25 < n_speech / (len(names) * GU_T) < 0.8
+    for model in ["wld"] + [f"spk{s:02d}" for s in range(GU_SPK)]:
+        for a, b in zip(read_gmm_file(os.path.join(tdir, model + ".gmm")),
+                        read_gmm_file(os.path.join(jdir, model + ".gmm"))):
+            _close(a, b, 1e-4)
+    n_trials = {"main": GU_TGT * GU_TGT, "z": 4 * GU_TGT, "t": GU_TGT * 4,
+                "zt": 16}
+    for name in list(n_trials) + list(GU_TESTS)[1:] + list(GU_NORMS):
+        got, want = res["torch"][name], res["jax"][name]
+        assert len(got) == len(want) > 0, name
+        if name in n_trials:
+            assert len(got) == n_trials[name]
+        # the same trial lines in the same order (decision included)
+        assert _trial_keys(got) == _trial_keys(want), name
+        sg = np.array([r.score for r in got])
+        sw = np.array([r.score for r in want])
+        assert np.isfinite(sg).all()
+        atol = (NORM_ATOL if name in GU_NORMS else
+                DECIME_ATOL if name == "decime" else SCORE_ATOL)
+        rtol = 1e-4 if name in GU_NORMS else 0.0
+        np.testing.assert_allclose(sg, sw, rtol=rtol, atol=atol,
+                                   err_msg=name)
+        # the NIST files hold the same lines in the same order
+        ft = read_nist_scores(os.path.join(tdir, name + ".nist"))
+        fj = read_nist_scores(os.path.join(jdir, name + ".nist"))
+        assert _trial_keys(ft) == _trial_keys(fj), name
+    # targets score above impostors, raw and ZT-normed
+    for name in ("main", "ztnorm"):
+        sc = res["torch"][name]
+        tgt = np.array([r.score for r in sc if r.seg.startswith(r.model)])
+        imp = np.array([r.score for r in sc
+                        if not r.seg.startswith(r.model)])
+        assert tgt.mean() > imp.mean(), name
+
+
+NORMFEAT_MODES = {
+    "file": {"segmentalMode": "file"},
+    "file_cms": {"segmentalMode": "file", "cmsOnly": "true"},
+    "segment": {"segmentalMode": "segment"},
+    "window": {"segmentalMode": "window", "windowDuration": 0.5},
+    "featWarp": {"mode": "featWarp", "windowDuration": 1.0},
+    "featMap": {"mode": "featMap", "channelMixture": "chan",
+                "inputWorldFilename": "root"},
+    "speech_only": {"segmentalMode": "file", "writeAllFeatures": "false"},
+}
+
+
+@pytest.mark.parametrize("mode", list(NORMFEAT_MODES))
+def test_norm_feat_modes_match_jax(gu_corpus, tmp_path, mode):
+    """Every ported NormFeat mode, both packages on the same files (one of
+    them shorter than half the warping window) with the same labels:
+    outputs within atol 1e-5 (f32 CMVN; the warp ranks are exact), the
+    info mode's printed stats to 1e-5 relative."""
+    from lia_ral_tpu.tools import norm_feat as jnf
+    from lia_ral_tpu_torch.io.features import read_feature_file
+    from lia_ral_tpu_torch.tools import norm_feat as tnf
+
+    d = gu_corpus
+    rng = np.random.default_rng(23)
+    names = ["spk00_s0", "spk01_s1", "short"]
+    for name in names[:2]:
+        shutil.copy(os.path.join(d, name + ".prm"), str(tmp_path))
+    write_feature_file(os.path.join(str(tmp_path), "short.prm"),
+                       rng.standard_normal((40, GU_DIM + 1))
+                       .astype(np.float32), fmt="SPRO4")
+    write_label_file(os.path.join(str(tmp_path), "spk00_s0.lbl"),
+                     [Segment(0.2, 1.5, "speech"), Segment(2.0, 3.9, "speech")])
+    w, m, ci = random_gmm_np(rng, 4, GU_DIM)
+    JGmm.create(w, m, ci).save(os.path.join(str(tmp_path), "chan.gmm"))
+    JGmm.create(w, m + 0.5, ci * 2).save(os.path.join(str(tmp_path),
+                                                      "root.gmm"))
+    write_xlist(os.path.join(str(tmp_path), "files.lst"),
+                [[n] for n in names])
+    outs = {}
+    for pkg, cls, tool in (("jax", JConfig, jnf), ("torch", TConfig, tnf)):
+        cfg = cls({
+            "featureFilesPath": str(tmp_path) + "/",
+            "labelFilesPath": str(tmp_path) + "/",
+            "mixtureFilesPath": str(tmp_path) + "/",
+            "lstPath": str(tmp_path) + "/",
+            "loadFeatureFileFormat": "SPRO4",
+            "saveFeatureFileFormat": "SPRO4",
+            "saveFeatureFileExtension": f".{pkg}.prm",
+            "featureServerMask": f"0-{GU_DIM - 1}",
+            "addDefaultLabel": "true", "defaultLabel": "speech",
+            "labelSelectedFrames": "speech", "torchDevice": "cpu",
+            "inputFeatureFilename": "files.lst", "mode": "norm"})
+        cfg.update(NORMFEAT_MODES[mode])
+        outs[pkg] = tool.main(cfg)
+    for name in names:
+        a = read_feature_file(os.path.join(str(tmp_path),
+                                           name + ".torch.prm")).data
+        b = read_feature_file(os.path.join(str(tmp_path),
+                                           name + ".jax.prm")).data
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(outs["torch"][name], a, rtol=0, atol=0)
+
+
+def test_norm_feat_info_matches_jax(gu_corpus, tmp_path, capsys):
+    from lia_ral_tpu.tools import norm_feat as jnf
+    from lia_ral_tpu_torch.tools import norm_feat as tnf
+
+    d = gu_corpus
+    outs = {}
+    for pkg, cls, tool in (("jax", JConfig, jnf), ("torch", TConfig, tnf)):
+        outs[pkg] = tool.main(cls({
+            "featureFilesPath": d + "/", "labelFilesPath": d + "/",
+            "loadFeatureFileFormat": "SPRO4", "addDefaultLabel": "true",
+            "defaultLabel": "speech", "labelSelectedFrames": "speech",
+            "torchDevice": "cpu", "inputFeatureFilename": "spk02_s1",
+            "mode": "info"}))
+    np.testing.assert_allclose(outs["torch"]["spk02_s1"],
+                               outs["jax"]["spk02_s1"], rtol=1e-5)
+    assert capsys.readouterr().out.count("[spk02_s1] mean=") == 2
+
+
+def _trained_models(gu_corpus, work):
+    """The torch package's UBM and client models of the chain in
+    ``work`` (NormFeat and TrainWorld/TrainTarget only)."""
+    d = gu_corpus
+    os.makedirs(work)
+    for f in os.listdir(d):
+        if f.endswith((".prm", ".gmm")):
+            shutil.copy(os.path.join(d, f), work)
+    from lia_ral_tpu_torch.tools import norm_feat, train_target
+    cfg = lambda **kw: _gu_config(TConfig, d, work, addDefaultLabel="true",
+                                  defaultLabel="speech", **kw)
+    norm_feat.main(cfg(inputFeatureFilename="all.ndx",
+                       loadFeatureFileExtension=".prm",
+                       featureServerMask=f"0-{GU_DIM - 1}", mode="norm",
+                       saveFeatureFileExtension=".norm.prm"))
+    t_train_world.main(cfg(inputFeatureFilename="world.ndx",
+                           inputWorldFilename="init",
+                           outputWorldFilename="wld",
+                           mixtureDistribCount=GU_K, nbTrainIt=2,
+                           baggedFrameProbability=1.0))
+    train_target.main(cfg(targetIdList=os.path.join(d, "models.ndx"),
+                          inputWorldFilename="wld", meanAdapt="true",
+                          nbTrainIt=2))
+    return cfg
+
+
+def test_compute_test_keys_match_jax(gu_corpus, tmp_path, capsys):
+    """maxTargetLine, nbMaxMixtureInMemory, per-line failure containment
+    (a missing test file, a missing model) and skipExistingOutput, in
+    both packages on the same models: the same lines, in NDX order,
+    scores within 1e-4."""
+    from lia_ral_tpu.tools import compute_test as jct
+    from lia_ral_tpu_torch.tools import compute_test as tct
+
+    work = str(tmp_path / "w")
+    cfg = _trained_models(gu_corpus, work)
+    write_xlist(os.path.join(work, "odd.ndx"), [
+        ["spk03_s2", "spk00", "spk01", "nosuchmodel", "spk02", "spk03"],
+        ["nosuchfile", "spk00"],
+        ["spk01_s2", "spk01"],
+        ["spk00_s2", "spk03", "spk02", "spk01", "spk00"]])
+    res = {}
+    for pkg, cls, tool in (("jax", JConfig, jct), ("torch", TConfig, tct)):
+        c = cls(dict(cfg().items()))
+        c.update({"ndxFilename": os.path.join(work, "odd.ndx"),
+                  "inputWorldFilename": "wld", "maxTargetLine": 4,
+                  "nbMaxMixtureInMemory": 2,
+                  "outputFilename": os.path.join(work, pkg + ".nist")})
+        res[pkg] = tool.main(c)
+        err = capsys.readouterr().out
+        assert "cannot read test segment [nosuchfile]" in err
+        assert "cannot load model [nosuchmodel]" in err
+        # a rerun with skipExistingOutput reads the file back
+        c["skipExistingOutput"] = "true"
+        again = tool.main(c)
+        assert [r.model for r in again] == [r.model for r in res[pkg]]
+        assert "skipping" in capsys.readouterr().out
+    assert _trial_keys(res["torch"]) == _trial_keys(res["jax"])
+    assert [r.model for r in res["torch"]] == [
+        "spk00", "spk01", "spk02", "spk01", "spk03", "spk02", "spk01",
+        "spk00"]
+    np.testing.assert_allclose([r.score for r in res["torch"]],
+                               [r.score for r in res["jax"]], rtol=0,
+                               atol=SCORE_ATOL)
+
+
+def test_train_target_keys_match_jax(gu_corpus, tmp_path, capsys):
+    """useIdForSelectedFrame (the client id as the frame label) and the
+    missing-data warning with useModelData (the world saved as the
+    client), in both packages."""
+    from lia_ral_tpu.tools import train_target as jtt
+    from lia_ral_tpu_torch.tools import train_target as ttt
+
+    work = str(tmp_path / "w")
+    cfg = _trained_models(gu_corpus, work)
+    write_label_file(os.path.join(work, "spk05_s0.lbl"),
+                     [Segment(0.5, 2.5, "spk05")])
+    write_label_file(os.path.join(work, "spk05_s1.lbl"),
+                     [Segment(1.0, 3.0, "spk05"), Segment(3.2, 3.9, "x")])
+    write_xlist(os.path.join(work, "ids.ndx"),
+                [["spk05", "spk05_s0", "spk05_s1"], ["ghost", "nofile"]])
+    models = {}
+    for pkg, cls, tool in (("jax", JConfig, jtt), ("torch", TConfig, ttt)):
+        c = cls(dict(cfg().items()))
+        c.update({"targetIdList": os.path.join(work, "ids.ndx"),
+                  "inputWorldFilename": "wld", "meanAdapt": "true",
+                  "varAdapt": "true", "nbTrainIt": 2,
+                  "useIdForSelectedFrame": "true", "useModelData": "true",
+                  "addDefaultLabel": "false",
+                  "saveMixtureFileExtension": f".{pkg}.gmm"})
+        models[pkg] = tool.main(c)
+        assert "no data for client [ghost]" in capsys.readouterr().out
+    for client in ("spk05", "ghost"):
+        for a, b in zip(read_gmm_file(os.path.join(work,
+                                                   client + ".torch.gmm")),
+                        read_gmm_file(os.path.join(work,
+                                                   client + ".jax.gmm"))):
+            _close(a, b, 1e-4)
+    for a, b in zip(read_gmm_file(os.path.join(work, "ghost.torch.gmm")),
+                    read_gmm_file(os.path.join(work, "wld.gmm"))):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("tool,extra,item", [
+    ("compute_test", {"computeTestMode": "dotProduct"}, 13),
+    ("compute_test", {"computeTestMode": "nap"}, 13),
+    ("compute_test", {"computeTestMode": "jfa"}, 10),
+    ("compute_test", {"computeTestMode": "lfa"}, 10),
+    ("train_target", {"channelCompensation": "JFA"}, 10),
+    ("train_target", {"channelCompensation": "LFA"}, 10),
+    ("train_target", {"channelCompensation": "true"}, 10),
+    ("train_target", {"NAP": "true"}, 13),
+    ("train_target", {"outputAdaptParam": "true"}, 13),
+    ("norm_feat", {"mode": "featFA"}, 10),
+    ("norm_feat", {"mode": "featLFA"}, 10),
+    ("norm_feat", {"mode": "featNAP"}, 13),
+], ids=lambda v: v if isinstance(v, str) else None)
+def test_gmm_ubm_unported_modes_raise(tool, extra, item):
+    import importlib
+    mod = importlib.import_module(f"lia_ral_tpu_torch.tools.{tool}")
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP queue 1, item {item}\)"):
+        mod.main(TConfig(dict(extra, torchDevice="cpu")))
+
+
+# -- the reference's own fixtures -------------------------------------------
+
+@requires_reference
+def test_compute_test_golden_llrs(tmp_path):
+    """The port's ComputeTest on the reference's ComputeTest.cfg and its
+    repaired fixture models against test1.validate.res, at the JAX test's
+    bounds (tests/test_parity_golden.py:56-104): the self-consistency
+    trials (test2 ≡ wld) within 5e-5, the real trials within 0.03 (the
+    fixtures' unrecoverable byte flips)."""
+    from lia_ral_tpu.io.gmm_io import _read_gmm_raw, write_gmm_file
+    from lia_ral_tpu.io.repair import repair_gmm_raw
+    from lia_ral_tpu_torch.tools import compute_test as tct
+
+    ct = os.path.join(REFERENCE, "LIA_SpkDet/ComputeTest/test")
+    d = str(tmp_path)
+    for name in ("wld", "test1", "test2"):
+        with open(os.path.join(ct, name), "rb") as f:
+            w, m, ci = _read_gmm_raw(repair_gmm_raw(f.read()))
+        write_gmm_file(os.path.join(d, name), w, m, ci, fmt="RAW")
+    for t in ("test3", "test4"):
+        shutil.copy(os.path.join(ct, "test1.prm"), os.path.join(d, t + ".prm"))
+        shutil.copy(os.path.join(ct, "test1.lbl"), os.path.join(d, t + ".lbl"))
+    cfg = TConfig.load(os.path.join(ct, "ComputeTest.cfg"))
+    cfg["featureFilesPath"] = d + "/"
+    cfg["mixtureFilesPath"] = d + "/"
+    cfg["labelFilesPath"] = d + "/"
+    cfg["loadLabelFileExtension"] = ".lbl"
+    cfg["ndxFilename"] = os.path.join(ct, "ndx")
+    cfg["outputFilename"] = os.path.join(d, "test1.res")
+    cfg["torchDevice"] = "cpu"
+    tct.main(cfg)
+    golden = read_nist_scores(os.path.join(ct, "test1.validate.res"))
+    got = read_nist_scores(os.path.join(d, "test1.res"))
+    assert len(golden) == 8 and len(got) == 8
+    by_key = {(r.model, r.seg, r.begin, r.end): r.score for r in got}
+    for g in golden:
+        key = (g.model, g.seg, g.begin, g.end)
+        assert key in by_key, f"missing trial {key}"
+        delta = abs(by_key[key] - g.score)
+        assert delta < (5e-5 if g.model == "test2" else 0.03), \
+            (key, by_key[key], g.score)
+
+
+@requires_reference
+def test_energy_detector_on_reference_fixture(tmp_path):
+    """The port's EnergyDetector with the reference's config on its
+    fixture features (tests/test_tools.py:22-45): speech segments that
+    overlap the golden 0.21-0.26 segment, and the JAX tool's labels."""
+    from lia_ral_tpu.io.labels import read_label_file
+    from lia_ral_tpu.tools import energy_detector as jed
+    from lia_ral_tpu_torch.tools import energy_detector as ted
+
+    fix = os.path.join(REFERENCE, "LIA_SpkDet/EnergyDetector/test")
+    labels = {}
+    for pkg, cls, tool in (("jax", JConfig, jed), ("torch", TConfig, ted)):
+        d = str(tmp_path / pkg)
+        os.makedirs(d)
+        shutil.copy(os.path.join(fix, "test1.prm"), d)
+        shutil.copy(os.path.join(fix, "test1.lbl"), d)
+        cfg = cls.load(os.path.join(fix, "EnergyDetector.cfg"))
+        for k in ("featureFilesPath", "mixtureFilesPath", "labelFilesPath",
+                  "lstPath"):
+            cfg[k] = d + "/"
+        cfg["loadLabelFileExtension"] = ".lbl"
+        cfg["torchDevice"] = "cpu"
+        tool.main(cfg)
+        labels[pkg] = read_label_file(os.path.join(d, "test1.enr.lbl"))
+    got = labels["torch"]
+    assert got == labels["jax"]
+    golden = read_label_file(os.path.join(fix, "test1.validate.enr.lbl"))
+    assert len(got) >= 1 and all(g.label == "speech" for g in got)
+    v0 = golden[0]
+    assert max(min(g.end, v0.end) - max(g.begin, v0.begin) for g in got) > 0
