@@ -10,7 +10,8 @@ printed as it ends; any failure raises and the exit code is non-zero:
 1. device   the card's name and power limit (nvidia-smi), torch and CUDA
 2. build    nvcc builds the kernels of csrc/ into the ignored build dir
 3. K1       em_stats_fused in every tier (default, fastStats, fastMath,
-            both) against its plain version, ~5 % zero-weight frames, at
+            both) against its plain version (and closer to it than to
+            another tier's), ~5 % zero-weight frames, at
             three shapes: K=2048, D=39, 65,536 frames (the UBM's); K=3,
             D=1, 2000 frames (the energy VAD's); K=2048, D=39, 10,000
             frames (a MAP client's); a rerun reproduces every digit
@@ -41,7 +42,16 @@ printed as it ends; any failure raises and the exit code is non-zero:
 7. timing   each kernel, in every tier, and its plain version at the
             slice's shapes (1M frames; K2 as 500 × 2000), CUDA events,
             median of 3 after warm-up; the last outputs of each pair are
-            held against each other as in phases 3 and 4
+            held against each other as in phases 3 and 4.  K1's default
+            tier is also timed at a MAP client's shape (10,000 frames)
+            and the energy VAD's (2000 frames, K=3, D=1).  Beside each
+            time stands its bound (``bound_ms``: the larger of the bytes
+            each input and output needs once over 3.35 TB/s and the two
+            products' flops, in the tier's one or three bf16 passes, over
+            989 TFLOP/s).  No single PyTorch call computes either
+            function, so ``library_ms`` is null.  (The SIMT f32 design
+            that these kernels replaced is gone from the tree; its recorded
+            times stand in PERF.md, not in this script's output.)
 8. gmm-ubm  the GMM-UBM system of configs 1 and 2 at full width: phase
             6's corpus (seed 0, speakers also differing by per-component
             offsets) as 500 SPRO4 files with a 40th log-energy column,
@@ -66,7 +76,9 @@ printed as it ends; any failure raises and the exit code is non-zero:
 The line before the last is one JSON object of per-kernel results
 (``launches`` summed over the main paths of phases 6 and 8, by path in
 ``launches_by_path``; ``check_launches`` from the comparisons of phases
-3, 4, 7 and 8); the last line is {"ok": true, "device": {...}}.
+3, 4, 7 and 8; ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
+``library_ms`` from phase 7); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -112,13 +124,39 @@ from lia_ral_tpu_torch.tools.common import load_features_and_mask
 
 K, D, R = 2048, 39, 400
 N_SPK, UTT_PER_SPK, T_UTT = 50, 10, 2000
-SOURCE = "lia_ral_tpu_torch/csrc/gmm_stats.cu"
+SOURCE = "lia_ral_tpu_torch/csrc/gmm_stats_wgmma.cu"
 REPLACES = {"em_stats_fused": "lia_ral_tpu/gmm/pallas_kernels.py:314",
             "bw_stats_fused": "lia_ral_tpu/gmm/pallas_kernels.py:476"}
 # tier name → (compute_dtype, stats_pass), as the wrappers take them
 TIERS = {"": (None, "x3"), "fastStats": (None, "bf16nx"),
          "fastMath": (torch.bfloat16, "x3"),
          "fastMath+fastStats": (torch.bfloat16, "bf16nx")}
+
+
+HBM_BYTES_PER_S, BF16_FLOPS_PER_S = 3.35e12, 989e12     # H100 SXM peaks
+
+
+def bound_ms(kernel: str, tier: str, n: int, k: int, d: int,
+             utterances: int = 1) -> tuple[float, str]:
+    """The least time the card could take for one call: the larger of the
+    bytes (x, w, the GMM and the outputs, each once) over the memory rate
+    and the flops of the two products (logits over 2D+1 design columns;
+    stats over the 2D+1 columns K1 returns, or the D+1 that K2 returns),
+    each in the tier's one or three bf16 passes, over the tensor cores'
+    bf16 rate.  n counts all frames (zero-weight ones are computed too).
+    Returns (ms, "bytes" or "operations")."""
+    logit_passes = 1 if "fastMath" in tier else 3
+    stat_passes = 1 if "fastStats" in tier else 3
+    k1 = kernel == "em_stats_fused"
+    stat_cols = 2 * d + 1 if k1 else d + 1
+    flops = 2 * n * k * ((2 * d + 1) * logit_passes
+                         + stat_cols * stat_passes)
+    out_floats = k * (2 * d + 1) + 2 if k1 else utterances * (k * (d + 1) + 1)
+    nbytes = 4 * (n * d + n + k * (2 * d + 1) + out_floats)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
 
 
 def entry(kernel: str, tier: str) -> str:
@@ -234,15 +272,16 @@ def run_slice(x, mask, init, tv_t, fused: bool):
     return ubm, bw, w, cosine_scores(models, tests), target, llks
 
 
-def check_rounding(name, got, tier_plain, default_plain) -> None:
+def check_rounding(name, got, tier_plain, other_plain) -> None:
     """A tier's kernel must sit much closer to its own plain version than
-    to the default tier's, in mean |error|: a kernel rounding at other
-    points would not.  (Mean, not max: a bf16 rounding that flips on an
-    f32-level difference moves one element by a whole bf16 ulp, but such
-    flips are rare.)"""
+    to another tier's (the default tier's; for the default tier,
+    fastStats'), in mean |error|: a kernel rounding at other points would
+    not.  (Mean, not max: a bf16 rounding that flips on an f32-level
+    difference moves one element by a whole bf16 ulp, but such flips are
+    rare.)"""
     own = float((got - tier_plain).abs().mean())
-    other = float((got - default_plain).abs().mean())
-    print(f"  {name}: mean|err| vs its tier {own:.3e}, vs default tier "
+    other = float((got - other_plain).abs().mean())
+    print(f"  {name}: mean|err| vs its tier {own:.3e}, vs the other tier "
           f"{other:.3e}")
     check(own < 0.5 * other, f"{name} rounds where its plain version rounds")
 
@@ -564,8 +603,12 @@ def run_gmm_ubm(kernels, dev) -> None:
             f"{k} {k1_ms[k]:.2f} ({k1_launches[k]})" for k in walls
             if k1_launches[k]))
         print(f"  gmm-ubm: launches {launches}")
-        for tool in ("EnergyDetector", "TrainTarget", "TrainWorld"):
-            check(k1_launches[tool] > 0, f"K1 launched by {tool}")
+        # 500 files x 10 EM iterations; 3 EM iterations; 50 models x 3
+        for tool, count in (("EnergyDetector", 5000), ("TrainWorld", 3),
+                            ("TrainTarget", 150)):
+            check(k1_launches[tool] == count,
+                  f"K1 launched {count} times by {tool} "
+                  f"({k1_launches[tool]})")
         check(all(v == 0 for k, v in launches.items()
                   if k != "em_stats_fused"),
               "only the default K1 launched on the GMM-UBM path")
@@ -686,6 +729,7 @@ def main() -> int:
         w[rng.random(n) < 0.05] = 0.0
         w = torch.from_numpy(w).to(dev)
         default_plain = ck.em_stats_reference(x, w, g)
+        other_plain = ck.em_stats_reference(x, w, g, stats_pass="bf16nx")
         for tier, (cdt, sp) in TIERS.items():
             ename = entry("em_stats_fused", tier)
             label = f"K1 {ename} N={n} K={gk} D={gd}"
@@ -702,9 +746,8 @@ def main() -> int:
                               (got.llk[None], want.llk[None]))
             check(abs(float(got.count) - float(want.count))
                   <= 1e-6 * float(want.count), f"{label} count")
-            if tier:
-                check_rounding(label, got.sum_x, want.sum_x,
-                               default_plain.sum_x)
+            check_rounding(label, got.sum_x, want.sum_x,
+                           (default_plain if tier else other_plain).sum_x)
             again = ck.em_stats_fused(x, w, g, compute_dtype=cdt,
                                       stats_pass=sp)
             check(all(torch.equal(a, b) for a, b in zip(
@@ -723,6 +766,7 @@ def main() -> int:
                                                   dtype=np.float32)).to(dev)
         ms = ragged_mask(rng, s, t, dev)
         f_default = ck.bw_stats_reference(xs, ms, gmm)[1]
+        f_other = ck.bw_stats_reference(xs, ms, gmm, stats_pass="bf16nx")[1]
         for tier, (cdt, sp) in TIERS.items():
             ename = entry("bw_stats_fused", tier)
             n_k, f_k, l_k = ck.bw_stats_fused(xs, ms, gmm, compute_dtype=cdt,
@@ -737,8 +781,8 @@ def main() -> int:
                 (l_k, l_p)))
             check(bool((n_k[-1] == 0).all() and (f_k[-1] == 0).all()),
                   f"K2 {ename}: all-zero-weight utterance gives n = f = 0")
-            if tier:
-                check_rounding(f"K2 {ename} S={s} T={t}", f_k, f_p, f_default)
+            check_rounding(f"K2 {ename} S={s} T={t}", f_k, f_p,
+                           f_default if tier else f_other)
             n2, f2, l2 = ck.bw_stats_fused(xs, ms, gmm, compute_dtype=cdt,
                                            stats_pass=sp)
             check(torch.equal(n2, n_k) and torch.equal(f2, f_k)
@@ -747,7 +791,7 @@ def main() -> int:
     for tier in TIERS:
         kernels[entry("bw_stats_fused", tier)]["max_abs_err"] = worst[tier]
     check_launches = dict(ck.launch_counts)
-    del xs, ms, x, w, f_default, default_plain
+    del xs, ms, x, w, f_default, f_other, default_plain, other_plain
     phase("K2 vs plain", t0)
 
     # 5. the slice at full width
@@ -840,10 +884,13 @@ def main() -> int:
             label = tier or "default"
             launches = res["launches"]
             print(f"  chain [{label}]: launches {launches}")
-            for kname in REPLACES:
+            # K1: 3 EM iterations; K2: 8 batches in each of
+            # TotalVariability and IvExtractor
+            for kname, count in (("em_stats_fused", 3),
+                                 ("bw_stats_fused", 16)):
                 key = entry(kname, tier)
-                check(launches[key] > 0, f"{key} launched in the {label} "
-                      "chain")
+                check(launches[key] == count, f"{key} launched {count} "
+                      f"times in the {label} chain ({launches[key]})")
                 kernels[key]["launches"] = launches[key]
                 if tier:
                     check(launches[kname] == 0,
@@ -897,7 +944,7 @@ def main() -> int:
     t0 = time.perf_counter()
     ck.reset_launch_counts()
     xf, wf = xu.reshape(-1, D), mask.reshape(-1)
-    default_plain = {}
+    timed = {}                  # entry name → (kernel's, plain version's F)
     for tier, (cdt, sp) in TIERS.items():
         ename = entry("em_stats_fused", tier)
         k_ms, p_ms, got, want = timed_pair(
@@ -905,7 +952,9 @@ def main() -> int:
                                       stats_pass=sp),
             lambda: ck.em_stats_reference(xf, wf, ubm, compute_dtype=cdt,
                                           stats_pass=sp))
-        kernels[ename].update(ms=k_ms, plain_ms=p_ms)
+        b_ms, b_by = bound_ms("em_stats_fused", tier, xf.shape[0], K, D)
+        kernels[ename].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                              bound_by=b_by)
         rs = sum_rtol(tier)
         err = check_stats(f"K1 {ename} N={xf.shape[0]}",
                           [("n", got.n, want.n, 1e-4),
@@ -914,11 +963,7 @@ def main() -> int:
                           (got.llk[None], want.llk[None]))
         check(abs(float(got.count) - float(want.count))
               <= 1e-6 * float(want.count), f"K1 {ename} count")
-        if tier:
-            check_rounding(f"K1 {ename} N={xf.shape[0]}", got.sum_x,
-                           want.sum_x, default_plain["K1"])
-        else:
-            default_plain["K1"] = want.sum_x
+        timed[ename] = (got.sum_x, want.sum_x)
         kernels[ename]["max_abs_err"] = max(kernels[ename]["max_abs_err"],
                                             err)
         ename = entry("bw_stats_fused", tier)
@@ -927,26 +972,52 @@ def main() -> int:
                                       stats_pass=sp),
             lambda: ck.bw_stats_reference(xu, mask, ubm, compute_dtype=cdt,
                                           stats_pass=sp))
-        kernels[ename].update(ms=k_ms, plain_ms=p_ms)
-        label = f"K2 {ename} S={xu.shape[0]} T={xu.shape[1]}"
-        err = check_stats(label, [("n", n_k, n_p, 1e-4),
-                                  ("f", f_k, f_p, sum_rtol(tier))],
-                          (l_k, l_p))
-        if tier:
-            check_rounding(label, f_k, f_p, default_plain["K2"])
-        else:
-            default_plain["K2"] = f_p
+        b_ms, b_by = bound_ms("bw_stats_fused", tier, xf.shape[0], K, D,
+                              utterances=xu.shape[0])
+        kernels[ename].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                              bound_by=b_by)
+        err = check_stats(f"K2 {ename} S={xu.shape[0]} T={xu.shape[1]}",
+                          [("n", n_k, n_p, 1e-4),
+                           ("f", f_k, f_p, sum_rtol(tier))], (l_k, l_p))
+        timed[ename] = (f_k, f_p)
         kernels[ename]["max_abs_err"] = max(kernels[ename]["max_abs_err"],
                                             err)
         del got, want, n_k, f_k, l_k, n_p, f_p, l_p
+    for kname in REPLACES:
+        for tier in TIERS:
+            other = entry(kname, "" if tier else "fastStats")
+            check_rounding(f"{entry(kname, tier)} N={xf.shape[0]}",
+                           *timed[entry(kname, tier)], timed[other][1])
+    del timed
+    # K1's default tier at a MAP client's shape and at the energy VAD's
+    small = {}
+    for label, n, gk, gd in (("map_client", 10000, K, D), ("vad", 2000, 3, 1)):
+        g = ubm if gk == K else random_gmm(rng, gk, gd, dev)
+        xs_ = torch.from_numpy(rng.standard_normal((n, gd), dtype=np.float32)
+                               ).to(dev)
+        ws_ = torch.ones(n, device=dev)
+        k_ms, p_ms, _, _ = timed_pair(
+            lambda: ck.em_stats_fused(xs_, ws_, g),
+            lambda: ck.em_stats_reference(xs_, ws_, g))
+        b_ms, b_by = bound_ms("em_stats_fused", "", n, gk, gd)
+        small[label] = {"n": n, "k": gk, "d": gd, "ms": k_ms,
+                        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+        print(f"  em_stats_fused at the {label} shape (N={n}, K={gk}, "
+              f"D={gd}): kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
+              f"{b_ms:.2e} ms by {b_by}")
+    kernels["em_stats_fused"]["shapes"] = small
     for kname, kv in kernels.items():
         # launches made to hold a kernel against its plain version
         # (phases 3, 4 and 7), apart from the main paths' "launches"
         kv["check_launches"] = (check_launches[kname]
                                 + ck.launch_counts[kname])
+        kv["library_ms"] = None
         print(f"  {kname}: kernel {kv['ms']:.3f} ms, plain "
-              f"{kv['plain_ms']:.3f} ms (N={xf.shape[0]} frames, K={K}, "
-              f"D={D}; K2 as {N_SPK * UTT_PER_SPK} x {T_UTT})")
+              f"{kv['plain_ms']:.3f} ms, bound {kv['bound_ms']:.3f} ms by "
+              f"{kv['bound_by']} (bound / time = "
+              f"{100 * kv['bound_ms'] / kv['ms']:.1f} %) "
+              f"(N={xf.shape[0]} frames, K={K}, D={D}; K2 as "
+              f"{N_SPK * UTT_PER_SPK} x {T_UTT})")
     phase("timing", t0)
 
     # 8. the GMM-UBM system of configs 1 and 2 at full width

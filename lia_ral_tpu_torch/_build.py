@@ -20,7 +20,9 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-_SOURCES = (_PKG / "csrc" / "gmm_stats.cu",)
+_CSRC = _PKG / "csrc"
+SOURCE = _CSRC / "gmm_stats_wgmma.cu"
+_HEADERS = (_CSRC / "wgmma_ops.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -30,7 +32,7 @@ _lib = None
 build_seconds: float | None = None     # wall time of this process's build
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
     cand = Path(CUDA_HOME) / "bin" / "nvcc" if CUDA_HOME else None
@@ -45,10 +47,10 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     h = hashlib.sha256()
-    for src in _SOURCES:
-        h.update(src.read_bytes())
+    for f in (SOURCE, *_HEADERS):
+        h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libgmm_stats_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{SOURCE.stem}_{h.hexdigest()[:16]}.so"
 
 
 def _compile(out: Path) -> None:
@@ -57,12 +59,13 @@ def _compile(out: Path) -> None:
     # loads a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _SOURCES)]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+                               f"{' '.join(cmd)}\n{proc.stdout}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -84,10 +87,13 @@ def library():
             build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(path))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.lia_em_stats.argtypes = [p, p, p, ll, i, i, i, i,
-                                     p, p, p, p, p, p]
-        lib.lia_em_stats.restype = i
-        lib.lia_bw_stats.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p, p]
-        lib.lia_bw_stats.restype = i
+        lib.lia_stats_scratch_bytes.argtypes = [ll, i, i, i, i, i]
+        lib.lia_stats_scratch_bytes.restype = ll
+        lib.lia_em_stats_wgmma.argtypes = [p, p, p, p, p, ll, i, i, i, i,
+                                           p, p, p]
+        lib.lia_em_stats_wgmma.restype = i
+        lib.lia_bw_stats_wgmma.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                           p, p, p]
+        lib.lia_bw_stats_wgmma.restype = i
         _lib = lib
         return lib

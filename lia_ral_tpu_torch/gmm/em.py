@@ -19,7 +19,7 @@ import torch
 
 from .cuda_kernels import (check_tier, em_stats_fused,
                            em_stats_reference)
-from .kernels import EmStats
+from .kernels import EmStats, em_stats_chunked
 from .model import GmmDiag
 
 
@@ -60,14 +60,21 @@ class TrainCfg:
         )
 
 
-def default_stats_fn(chunk: int = 4096, block: int = 8192,
+def default_stats_fn(chunk: int = 4096, block: int | None = None,
                      fast_math: bool = False, fast_stats: bool = False):
-    """The stats pass for the input's device: kernel K1
-    (``cuda_kernels.em_stats_fused``, ``block`` frames per CTA chunk) for
-    a CUDA tensor, its plain version (``chunk`` frames at a time) for a
-    CPU tensor.  ``fast_math`` (config key ``fastMath``) takes the bf16
-    logit tier, ``fast_stats`` (``fastStats``) the bf16 S/F tier with
-    exact occupancies; ``cuda_kernels`` says where each rounds."""
+    """The stats pass for the input's device.  A CUDA tensor goes to
+    kernel K1 (``cuda_kernels.em_stats_fused``, ``block`` frames per CTA
+    chunk, by default its own rule).  A CPU tensor goes, in the default
+    tier, to the f32 stats path (``kernels.em_stats_chunked``, ``chunk``
+    frames at a time), as the JAX package takes its XLA path off the TPU,
+    and otherwise to the tier's plain version.  So on the CPU the default
+    tier is true f32 here, while ``cuda_kernels.em_stats_fused`` on the
+    same CPU tensor gives the plain version of what the card computes
+    (three bf16 passes); the two differ by that rounding only, and
+    ``cuda_kernels``'s docstring says why both exist.  ``fast_math`` (config key
+    ``fastMath``) takes the bf16 logit tier, ``fast_stats``
+    (``fastStats``) the bf16 S/F tier with exact occupancies;
+    ``cuda_kernels`` says where each rounds."""
     dt = torch.bfloat16 if fast_math else None
     sp = "bf16nx" if fast_stats else "x3"
     check_tier(dt, sp)
@@ -76,6 +83,8 @@ def default_stats_fn(chunk: int = 4096, block: int = 8192,
         if x.device.type == "cuda":
             return em_stats_fused(x, w, gmm, chunk=block, compute_dtype=dt,
                                   stats_pass=sp)
+        if not (fast_math or fast_stats):
+            return em_stats_chunked(x, w, gmm, chunk=chunk)
         return em_stats_reference(x, w, gmm, chunk=chunk, compute_dtype=dt,
                                   stats_pass=sp)
     return fn

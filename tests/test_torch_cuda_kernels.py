@@ -12,7 +12,10 @@ runs on a GPU machine without them:
 Tolerances: the JAX suite's CPU budgets (tests/test_pallas_kernel.py
 :35-46) with the atol scaled by the array's max — n rtol 1e-4, atol
 1e-4·max n; sums rtol 1e-3, atol 1e-3·max|·| — since K=2048 sums over
-tens of thousands of frames are O(10³); llk rel 1e-5.  The fastStats
+tens of thousands of frames are O(10³); llk rel 1e-5.  The default tier
+runs both products as three bf16 passes, as its plain version does, and
+is also held against float64 (n and sums 1e-3·max|·|: the dropped lo·lo
+terms and the bf16 rounding of lo leave ~2⁻¹⁷ per product term).  The fastStats
 tiers' S/F: 2e-3·max|·| (a bf16 rounding of p or xa·s flips on an
 f32-level difference between the kernel's and the plain version's
 logits).  The fastMath tier rounds its operands at the same points as
@@ -49,7 +52,9 @@ def _close(got, want, rtol):
                                          (1000, 37, 13, 256),
                                          (777, 64, 60, 100),
                                          (2000, 3, 1, 8192),
-                                         (10000, 2048, 39, 8192)])
+                                         (10000, 2048, 39, 8192),
+                                         (900, 130, 64, None),
+                                         (300, 1, 7, None)])
 def test_k1_cuda_matches_plain(cuda_device, n, k, d, chunk):
     rng = np.random.default_rng(5)
     tg = _gmm(1, k, d, cuda_device)
@@ -115,7 +120,9 @@ def _closer_to_tier(got, tier_plain, default_plain):
 
 @pytest.mark.parametrize("cdt,sp,name", TIERS, ids=[t[2] for t in TIERS])
 @pytest.mark.parametrize("n,k,d,chunk", [(65536, 2048, 39, 8192),
-                                         (777, 64, 60, 100)])
+                                         (777, 64, 60, 100),
+                                         (2000, 3, 1, None),
+                                         (10000, 2048, 39, None)])
 def test_k1_tiers_cuda_match_plain(cuda_device, n, k, d, chunk, cdt, sp,
                                    name):
     rng = np.random.default_rng(7)
@@ -148,7 +155,8 @@ def test_k1_tiers_cuda_match_plain(cuda_device, n, k, d, chunk, cdt, sp,
 
 
 @pytest.mark.parametrize("cdt,sp,name", TIERS, ids=[t[2] for t in TIERS])
-@pytest.mark.parametrize("s,t,k,d", [(8, 2000, 2048, 39), (7, 61, 100, 13)])
+@pytest.mark.parametrize("s,t,k,d", [(8, 2000, 2048, 39), (7, 61, 100, 13),
+                                     (5, 2060, 2048, 39)])
 def test_k2_tiers_cuda_match_plain(cuda_device, s, t, k, d, cdt, sp, name):
     rng = np.random.default_rng(8)
     tg = _gmm(2, k, d, cuda_device)
@@ -174,6 +182,135 @@ def test_k2_tiers_cuda_match_plain(cuda_device, s, t, k, d, cdt, sp, name):
     n2, f2, l2 = ck.bw_stats_fused(xt, mt, tg, compute_dtype=cdt,
                                    stats_pass=sp)
     assert torch.equal(n2, n) and torch.equal(f2, f) and torch.equal(l2, llk)
+
+
+def _f64_stats(x, w, gmm):
+    """(n, sum_x, sum_xx, Σ w·llk) of x (N,D) in float64 on the card."""
+    x, w = x.double(), w.double()
+    mu, iv = gmm.means.double(), gmm.cov_inv.double()
+    d = x.shape[1]
+    ld = (torch.log(gmm.weights.double())
+          - 0.5 * (d * np.log(2 * np.pi) - torch.log(iv).sum(-1))
+          - 0.5 * ((x * x) @ iv.T - 2 * x @ (mu * iv).T
+                   + (mu * mu * iv).sum(-1)))
+    llk = torch.logsumexp(ld, dim=-1)
+    g = torch.exp(ld - llk[:, None]) * w[:, None]
+    return g.sum(0), g.T @ x, g.T @ (x * x), (llk * w).sum()
+
+
+@pytest.mark.parametrize("n,k,d", [(65536, 2048, 39), (10000, 2048, 39),
+                                   (2000, 3, 1)])
+def test_default_tier_cuda_matches_float64(cuda_device, n, k, d):
+    rng = np.random.default_rng(12)
+    tg = _gmm(1, k, d, cuda_device)
+    xt = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)
+                          ).to(cuda_device)
+    w = rng.random(n).astype(np.float32)
+    w[rng.random(n) < 0.05] = 0.0
+    wt = torch.from_numpy(w).to(cuda_device)
+    got = ck.em_stats_fused(xt, wt, tg)
+    n64, sx64, sxx64, llk64 = _f64_stats(xt, wt, tg)
+    _close(got.n, n64, 1e-3)
+    _close(got.sum_x, sx64, 1e-3)
+    _close(got.sum_xx, sxx64, 1e-3)
+    np.testing.assert_allclose(float(got.llk), float(llk64), rtol=1e-5)
+    # K2 on the same frames as one utterance: the same function
+    n2, f2, l2 = ck.bw_stats_fused(xt[None], wt[None], tg)
+    _close(n2[0], n64, 1e-3)
+    _close(f2[0], sx64, 1e-3)
+    np.testing.assert_allclose(float(l2[0]), float(llk64), rtol=1e-5)
+
+
+def test_k1_single_chunk_and_chunk_rule(cuda_device):
+    """One chunk writes the result directly (no partials); the default
+    chunk is ``stats_chunk_len(N, K)``; another chunking gives the same
+    statistics within the budgets, and each reproduces every digit."""
+    rng = np.random.default_rng(13)
+    tg = _gmm(1, 200, 20, cuda_device)
+    xt = torch.from_numpy(rng.standard_normal((3000, 20), dtype=np.float32)
+                          ).to(cuda_device)
+    wt = torch.ones(3000, device=cuda_device)
+    one = ck.em_stats_fused(xt, wt, tg, chunk=4096)
+    auto = ck.em_stats_fused(xt, wt, tg)
+    same = ck.em_stats_fused(xt, wt, tg, chunk=ck.stats_chunk_len(3000, 200))
+    want = ck.em_stats_reference(xt, wt, tg)
+    for got in (one, auto):
+        _close(got.n, want.n, 1e-4)
+        _close(got.sum_x, want.sum_x, 1e-3)
+        _close(got.sum_xx, want.sum_xx, 1e-3)
+        np.testing.assert_allclose(float(got.llk), float(want.llk), rtol=1e-5)
+    for a, b in zip((auto.n, auto.sum_x, auto.sum_xx, auto.llk, auto.count),
+                    (same.n, same.sum_x, same.sum_xx, same.llk, same.count)):
+        assert torch.equal(a, b)
+
+
+def test_k2_unaligned_start_cuda_matches_plain(cuda_device):
+    """An utterance batch that starts 4 bytes off a 16-byte boundary (and
+    whose utterances start off it too: T·D odd) takes the 4-byte copies."""
+    rng = np.random.default_rng(14)
+    s, t, d, k = 6, 61, 13, 100
+    tg = _gmm(2, k, d, cuda_device)
+    flat = torch.from_numpy(rng.standard_normal(s * t * d + 1,
+                                                dtype=np.float32)
+                            ).to(cuda_device)
+    xt = flat[1:].view(s, t, d)
+    assert xt.is_contiguous() and xt.data_ptr() % 16 == 4
+    mask = (rng.random((s, t)) < 0.7).astype(np.float32)
+    mask[-1] = 0.0
+    mt = torch.from_numpy(mask).to(cuda_device)
+    for cdt, sp in [(None, "x3")] + [(a, b) for a, b, _ in TIERS]:
+        n, f, llk = ck.bw_stats_fused(xt, mt, tg, compute_dtype=cdt,
+                                      stats_pass=sp)
+        rn, rf, rl = ck.bw_stats_reference(xt, mt, tg, compute_dtype=cdt,
+                                           stats_pass=sp)
+        _close(n, rn, 1e-4)
+        _close(f, rf, _tier_sum_rtol(sp))
+        np.testing.assert_allclose(np_of(llk), np_of(rl), rtol=1e-5)
+        assert torch.all(n[-1] == 0) and torch.all(f[-1] == 0)
+    x1 = flat[1:1 + 300 * d].view(300, d)
+    w1 = torch.ones(300, device=cuda_device)
+    got, want = ck.em_stats_fused(x1, w1, tg), ck.em_stats_reference(x1, w1,
+                                                                     tg)
+    _close(got.n, want.n, 1e-4)
+    _close(got.sum_x, want.sum_x, 1e-3)
+
+
+def test_cuda_tensor_never_reaches_a_plain_path(cuda_device, monkeypatch):
+    """On a CUDA tensor every entry point launches its kernel, in every
+    tier: with the plain versions made to raise, the calls succeed and
+    each adds one to its own launch count."""
+    from lia_ral_tpu_torch.fa import stats as tstats
+    from lia_ral_tpu_torch.gmm import em as tem
+
+    def boom(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    for mod, name in ((ck, "em_stats_reference"), (ck, "bw_stats_reference"),
+                      (ck, "_tier_block"), (tem, "em_stats_reference"),
+                      (tem, "em_stats_chunked"),
+                      (tstats, "bw_stats_reference")):
+        monkeypatch.setattr(mod, name, boom)
+    rng = np.random.default_rng(15)
+    tg = _gmm(3, 70, 9, cuda_device)
+    xt = torch.from_numpy(rng.standard_normal((4, 300, 9), dtype=np.float32)
+                          ).to(cuda_device)
+    mt = torch.ones((4, 300), device=cuda_device)
+    for cdt, sp, name in [(None, "x3", "")] + TIERS:
+        k1 = f"em_stats_fused[{name}]" if name else "em_stats_fused"
+        k2 = f"bw_stats_fused[{name}]" if name else "bw_stats_fused"
+        before = dict(ck.launch_counts)
+        ck.em_stats_fused(xt.reshape(-1, 9), mt.reshape(-1), tg,
+                          compute_dtype=cdt, stats_pass=sp)
+        tem.default_stats_fn(fast_math=cdt is not None,
+                             fast_stats=sp == "bf16nx")(
+            xt.reshape(-1, 9), mt.reshape(-1), tg)
+        ck.bw_stats_fused(xt, mt, tg, compute_dtype=cdt, stats_pass=sp)
+        torch.cuda.synchronize()
+        assert ck.launch_counts[k1] == before[k1] + 2
+        assert ck.launch_counts[k2] == before[k2] + 1
+    before = ck.launch_counts["bw_stats_fused"]
+    tstats.bw_stats_batch(xt, mt, tg)
+    assert ck.launch_counts["bw_stats_fused"] == before + 1
 
 
 def test_cuda_wrappers_reject_bad_inputs(cuda_device):

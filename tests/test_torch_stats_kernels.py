@@ -236,8 +236,8 @@ def _max_dev(a, b):
 @pytest.mark.parametrize("n,k,d", [(96, 8, 5), (130, 16, 7)])
 def test_k1_tier_plain_matches_jax_kernel(rng, n, k, d, cdt, sp):
     """The tier's plain version against the JAX kernel in the same tier,
-    and against the JAX kernel with f32 logits (``mxu_precision=
-    "highest"``, the arithmetic of the CUDA kernel): the port sits far
+    whose logits are the three-pass bf16 product of the CUDA kernel
+    (``mxu_precision="bf16x3"``, the JAX default): the port sits far
     closer to that than to the default tier, so its bf16 roundings are
     where the TPU kernel's are."""
     jg, tg = both_gmms(rng, k, d)
@@ -253,13 +253,11 @@ def test_k1_tier_plain_matches_jax_kernel(rng, n, k, d, cdt, sp):
                        [getattr(want, f) for f in fields], cdt, sp)
     np.testing.assert_allclose(float(got.count), float(want.count),
                                rtol=COUNT_RTOL)
-    f32 = jem_fused(xj, wj, jg, block=32, interpret=True, compute_dtype=cdt,
-                    stats_pass=sp, mxu_precision="highest")
-    default = jem_fused(xj, wj, jg, block=32, interpret=True,
-                        mxu_precision="highest")
+    same_tier = want
+    default = jem_fused(xj, wj, jg, block=32, interpret=True)
     for f in ("sum_x", "sum_xx"):
-        assert (_max_dev(getattr(got, f), getattr(f32, f))
-                < 0.25 * _max_dev(getattr(f32, f), getattr(default, f)))
+        assert (_max_dev(getattr(got, f), getattr(same_tier, f))
+                < 0.25 * _max_dev(getattr(same_tier, f), getattr(default, f)))
 
 
 @pytest.mark.parametrize("cdt,sp", TIER_CASES, ids=TIER_IDS)
@@ -279,10 +277,10 @@ def test_k2_tier_plain_matches_jax_kernel(rng, t, cdt, sp):
     _assert_tier_close(got, want, cdt, sp)
     assert torch.all(got[0][1] == 0) and torch.all(got[1][1] == 0)
     assert float(got[2][1]) == 0.0
-    f32 = jbw_fused(xj, mj, jg, interpret=True, compute_dtype=cdt,
-                    stats_pass=sp, mxu_precision="highest")
-    default = jbw_fused(xj, mj, jg, interpret=True, mxu_precision="highest")
-    assert _max_dev(got[1], f32[1]) < 0.25 * _max_dev(f32[1], default[1])
+    same_tier = want
+    default = jbw_fused(xj, mj, jg, interpret=True)
+    assert (_max_dev(got[1], same_tier[1])
+            < 0.25 * _max_dev(same_tier[1], default[1]))
 
 
 def test_tier_dispatch_on_cpu(rng):
@@ -345,3 +343,124 @@ def test_fast_math_params_match_jax_rounding(rng):
     np.testing.assert_allclose(np_of(bt[14]),
                                np_of(ck.kernel_params(tg)[14]) * ck.LOG2_E,
                                rtol=1e-6)
+
+
+# -- the default tier's three-pass bf16 products and the chunk rule ------------
+
+def _rel_dev(a, b):
+    b = np_of(b)
+    return float(np.max(np.abs(np_of(a) - b)) / np.max(np.abs(b)))
+
+
+@pytest.mark.parametrize("k,d", [(37, 13), (3, 1)])
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_default_tier_plain_matches_jax_bf16x3(rng, kernel, k, d):
+    """The default tier's plain version (``_tier_block`` tier 0: both
+    products as hi·hi + hi·lo + lo·hi of bf16 splits, base-2 logits)
+    against the Pallas kernels in interpret mode with their defaults
+    (``mxu_precision="bf16x3"``, ``exp_mode="exp2"``, ``stats_pass="x3"``).
+    Both sides split and round at the same points, so the budget is five
+    times tighter than the f32 plain path's: n 2e-5·max, sums 2e-4·max,
+    llk rel 2e-6 (what is left is the order of the f32 sums)."""
+    jg, tg = both_gmms(rng, k, d)
+    if kernel == "K1":
+        x, w = _frames(rng, 200, d)
+        got = ck.em_stats_reference(torch.from_numpy(x), torch.from_numpy(w),
+                                    tg, chunk=64)
+        want = jem_fused(jnp.asarray(x), jnp.asarray(w), jg, block=64,
+                         interpret=True)
+        pairs = [(got.n, want.n, 2e-5), (got.sum_x, want.sum_x, 2e-4),
+                 (got.sum_xx, want.sum_xx, 2e-4)]
+        llks = (np_of(got.llk), np_of(want.llk))
+        f32 = jk.em_stats(jnp.asarray(x), jnp.asarray(w), jg).sum_x
+        stat = (got.sum_x, want.sum_x)
+    else:
+        x, mask = _utterances(rng, 3, 70, d)
+        mask[1] = 0.0
+        got = ck.bw_stats_reference(torch.from_numpy(x),
+                                    torch.from_numpy(mask), tg, batch=2)
+        want = jbw_fused(jnp.asarray(x), jnp.asarray(mask), jg, block=32,
+                         interpret=True)
+        pairs = [(got[0], want[0], 2e-5), (got[1], want[1], 2e-4)]
+        llks = (np_of(got[2]), np_of(want[2]))
+        assert torch.all(got[0][1] == 0) and torch.all(got[1][1] == 0)
+        f32 = jstats.bw_stats_batch(jnp.asarray(x), jnp.asarray(mask), jg,
+                                    use_fused=False).f
+        stat = (got[1], want[1])
+    for a, b, tol in pairs:
+        b = np_of(b)
+        np.testing.assert_allclose(np_of(a), b, rtol=tol,
+                                   atol=tol * np.abs(b).max())
+    np.testing.assert_allclose(llks[0], llks[1], rtol=2e-6, atol=1e-4)
+    if k > 3:
+        # the split is emulated, not skipped: the plain version is closer
+        # to the three-pass kernel than the true-f32 stats path is
+        assert _rel_dev(stat[0], stat[1]) < 0.5 * _rel_dev(f32, stat[1])
+
+
+@pytest.mark.parametrize("n,k,d", [(96, 8, 5), (130, 16, 7), (200, 37, 13)])
+def test_cpu_default_route_is_the_f32_stats_path(rng, n, k, d):
+    """Off the card the trainers' stats pass (``em.default_stats_fn``,
+    default tier) is the true-f32 path ``kernels.em_stats_chunked``, digit
+    for digit, and that path agrees with the Pallas kernel at f32 logits
+    (``mxu_precision="highest"``) within the default budgets.  The
+    wrapper's own CPU answer, the plain version of the three-pass kernel,
+    differs from it by that product's rounding: at most 1e-4 of the
+    largest entry of each array, and not by nothing."""
+    from lia_ral_tpu_torch.gmm import em as tem
+    from lia_ral_tpu_torch.gmm import kernels as tk
+
+    jg, tg = both_gmms(rng, k, d)
+    x, w = _frames(rng, n, d)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    before = dict(ck.launch_counts)
+    got = tem.default_stats_fn(chunk=32)(xt, wt, tg)
+    assert ck.launch_counts == before
+    f32_path = tk.em_stats_chunked(xt, wt, tg, chunk=32)
+    fields = ("n", "sum_x", "sum_xx", "llk", "count")
+    for f in fields:
+        assert torch.equal(getattr(got, f), getattr(f32_path, f))
+    assert_em_stats_close(got, jem_fused(jnp.asarray(x), jnp.asarray(w), jg,
+                                         block=32, interpret=True,
+                                         mxu_precision="highest"))
+    three_pass = ck.em_stats_fused(xt, wt, tg, chunk=32)
+    for f in ("n", "sum_x", "sum_xx"):
+        assert _rel_dev(getattr(three_pass, f), getattr(got, f)) < 1e-4
+    assert any(not torch.equal(getattr(three_pass, f), getattr(got, f))
+               for f in ("sum_x", "sum_xx"))
+
+
+def test_default_tier_params_are_unchanged(rng):
+    """``kernel_params`` and ``tier_params`` are what they were; the default
+    tier's plain version takes the scaled, unrounded matrix of fastStats."""
+    _, tg = both_gmms(rng, 16, 7)
+    assert torch.equal(ck.tier_params(tg, 0), ck.kernel_params(tg))
+    assert torch.equal(ck._plain_params(tg, 0), ck.tier_params(tg, 1))
+    for tier in (1, 2, 3):
+        assert torch.equal(ck._plain_params(tg, tier),
+                           ck.tier_params(tg, tier))
+
+
+@pytest.mark.parametrize("n,k,want", [(1_000_000, 2048, 8192),
+                                      (300_000, 2048, 8192),
+                                      (10_000, 2048, 640),
+                                      (5_000, 2048, 384),
+                                      (2_000, 3, 128), (100, 3, 128),
+                                      (50_000, 64, 256)])
+def test_stats_chunk_rule(n, k, want):
+    """K1's frames per stats-grid row: a pure function of N and K (the
+    same value whatever was asked before), a multiple of the frame tile,
+    at most ``MAX_CHUNK``, and small enough that the grid (chunks × K
+    blocks of 128) has about two CTAs per SM where N allows it."""
+    others = [ck.stats_chunk_len(a, b) for a, b in ((7, 1), (10**7, 4096))]
+    got = ck.stats_chunk_len(n, k)
+    assert got == want
+    assert [ck.stats_chunk_len(a, b)
+            for a, b in ((7, 1), (10**7, 4096))] == others
+    assert ck.stats_chunk_len(n, k) == got
+    assert got % ck.FRAME_TILE == 0 and ck.FRAME_TILE <= got <= ck.MAX_CHUNK
+    n_chunks, k_blocks = -(-n // got), -(-k // ck.STATS_K_BLOCK)
+    if got > ck.FRAME_TILE and got < ck.MAX_CHUNK:
+        assert n_chunks * k_blocks >= ck.N_SM
+    if n <= ck.FRAME_TILE:
+        assert n_chunks == 1            # the single-chunk case: no partials

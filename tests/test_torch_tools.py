@@ -11,12 +11,9 @@ patched here, on both sides, to return the same T.
 The JAX package's stats paths on the CPU ignore ``fastStats`` (they run
 XLA whatever the key says), so for the fastStats chain the JAX side's
 stats are routed through its Pallas kernels in interpret mode with
-``stats_pass="bf16nx"``, as the JAX suite's own tests run them, and with
-f32 logits (``mxu_precision="highest"``): the port's kernel and plain
-version compute f32 logits, while the TPU's 3-pass bf16 logit product,
-emulated in interpret mode, drops its lo·lo term, which moves p enough
-to flip its bf16 rounding (measured on this corpus: the S/F gap to the
-port grows from ~5e-6 to ~4e-5 of max, against the tier's own 1.6e-4).
+``stats_pass="bf16nx"``, as the JAX suite's own tests run them, with
+their default three-pass bf16 logit product (``mxu_precision="bf16x3"``),
+which the port's kernel and plain version compute too.
 
 Tolerances (stated per array, atol scaled by the array's max): UBM
 parameters rtol 1e-4 (f32 roundoff of the stats through 3 M-steps);
@@ -155,13 +152,11 @@ def _run_chain(pkg, d, t0, work, fast_stats, monkeypatch):
                 jem, "default_stats_fn",
                 lambda fast_math=False, fast_stats=False, **kw:
                 lambda x, w, g: jem_fused(x, w, g, block=512, interpret=True,
-                                          mxu_precision="highest",
                                           stats_pass="bf16nx"))
             monkeypatch.setattr(
                 jstats, "bw_stats_batch",
                 lambda x, m, g, stats_pass="x3", **kw: jstats.BwStats(
                     *jbw_fused(x, m, g, interpret=True,
-                               mxu_precision="highest",
                                stats_pass=stats_pass)[:2]))
     else:
         cls = TConfig
