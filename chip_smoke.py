@@ -72,18 +72,59 @@ printed as it ends; any failure raises and the exit code is non-zero:
             LLRs on 20 test segments within 1e-3.  Prints each tool's
             wall time, K1's device ms and launches per tool, and the raw
             and ZT-norm EER.
+9. backend  the i-vector back end of configs 3 and 5 (K=2048, D=39,
+            R=400) on phase 6's default-tier chain, whose
+            TotalVariability call also writes the eigenDecomposition
+            matrices and a stats checkpoint: the ubmWeight matrix
+            (``weighted_cov``) and IvExtractor in ubmWeight mode from
+            the checkpoint (no launch) and in eigenDecomposition mode
+            (K2, counted under its own path) → IvNorm (EFR, 2
+            iterations) → PLDA (rank 150, 10 iterations) → IvTest on
+            the 12,500 trials with cosine + WCCN, mahalanobis, 2cov,
+            plda, and LDA (rank 49, estimated inside IvTest with
+            ivNorm).  The corpus has no separate dev set: all 500
+            i-vectors (50 speakers × 10 sessions, the trials' own)
+            estimate every back-end matrix, so the EERs are optimistic;
+            PLDA's rank exceeds the speaker count.  Checks 12,500
+            finite scores per mode, mean target above mean impostor
+            score for cosine + WCCN, plda and 2cov, IvNorm's vectors
+            of unit norm and equal to ``apply_efr`` of its saved files,
+            a rerun of IvNorm → PLDA → IvTest (plda) equal to the digit,
+            and every library function of the TV approximations,
+            ivnorm, scoring and plda on the card against the CPU from
+            the same inputs within 1e-3 of scale (through invariants
+            where an eigensolver or QR leaves signs open).
+10. jfa     the JFA system of config 4 (300 eigenvoices, 100
+            eigenchannels, D) on phase 8's normalised features, labels,
+            world model and clients: ComputeJFAStats on the 250
+            training sessions (K2) → EigenVoice → EigenChannel →
+            EstimateDMatrix from the checkpoint (2 iterations each) →
+            TrainTarget channelCompensation=JFA on the 40 targets (K2;
+            D = sqrt(Σ/16), since EstimateDMatrix's D stays at its zero
+            init) → ComputeTest jfa on the 8,000 main trials; NormFeat
+            featLFA on 50 files and ComputeTest lfa on 20 segments.
+            Checks K2's launches per tool against the bucketing rule
+            (0 in the loadAccs tools), V and U finite and moved, the
+            library's V iterations equal to EigenVoice's file and the
+            EM likelihood of 2 sessions non-decreasing over them, the D
+            update from a non-zero D, the scores.  Prints walls, K2 ms
+            and launches per tool, the EER beside phase 8's raw EER and
+            the phase's peak device memory.
 
 The line before the last is one JSON object of per-kernel results
-(``launches`` summed over the main paths of phases 6 and 8, by path in
-``launches_by_path``; ``check_launches`` from the comparisons of phases
-3, 4, 7 and 8; ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
+(``launches`` summed over the main paths of phases 6, 8, 9 and 10, by
+path in ``launches_by_path``; ``check_launches`` from the comparisons of
+phases 3, 4, 7 and 8; ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
 ``library_ms`` from phase 7); the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import atexit
+import collections
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -102,11 +143,29 @@ import lia_ral_tpu_torch  # noqa: F401  (numerics pin: TF32 off)
 from lia_ral_tpu_torch import _build
 from lia_ral_tpu_torch.__main__ import main as cli
 from lia_ral_tpu_torch.backend.eval import eer
-from lia_ral_tpu_torch.backend.scoring import cosine_scores
+from lia_ral_tpu_torch.backend.ivnorm import (DevSet, apply_efr,
+                                              compute_cov_matrices,
+                                              compute_lda,
+                                              compute_mahalanobis,
+                                              compute_wccn, efr_iterations,
+                                              length_norm)
+from lia_ral_tpu_torch.backend.plda import (PldaModel, plda_em_iteration,
+                                            plda_llr, plda_train)
+from lia_ral_tpu_torch.backend.scoring import (cosine_scores,
+                                               mahalanobis_scores,
+                                               two_cov_model, two_cov_scores)
 from lia_ral_tpu_torch.config import Config
 from lia_ral_tpu_torch.convert import gmm_from_numpy
-from lia_ral_tpu_torch.fa.stats import bw_stats_batch
-from lia_ral_tpu_torch.fa.tv import TvModel, estimate_w, init_t
+from lia_ral_tpu_torch.fa.jfa import (JfaModel, JfaStats, estimate_x,
+                                      estimate_y, jfa_d_iteration,
+                                      jfa_v_iteration, jfa_verify_em_llk)
+from lia_ral_tpu_torch.fa.stats import BwStats, bw_stats_batch, load_stats
+from lia_ral_tpu_torch.fa.tv import (TvModel, approximate_tctc,
+                                     eigen_decompose_w, estimate_w,
+                                     estimate_w_eigen_decomposition,
+                                     estimate_w_ubm_weight, init_t,
+                                     norm_t_matrix, orthonormalize_t,
+                                     weighted_cov)
 from lia_ral_tpu_torch.gmm import cuda_kernels as ck
 from lia_ral_tpu_torch.gmm.em import (TrainCfg, default_stats_fn,
                                       mixture_init, train_model)
@@ -119,8 +178,11 @@ from lia_ral_tpu_torch.io.features import (read_feature_file,
 from lia_ral_tpu_torch.io.labels import (frame_mask_to_segments,
                                          write_label_file)
 from lia_ral_tpu_torch.io.lists import read_xlist, write_xlist
+from lia_ral_tpu_torch.io.matrix import read_matrix_file, write_matrix_file
 from lia_ral_tpu_torch.io.nist import read_nist_scores
 from lia_ral_tpu_torch.tools.common import load_features_and_mask
+from lia_ral_tpu_torch.tools.iv_norm import load_vectors
+from lia_ral_tpu_torch.utils.shapes import bucket_len
 
 K, D, R = 2048, 39, 400
 N_SPK, UTT_PER_SPK, T_UTT = 50, 10, 2000
@@ -179,6 +241,13 @@ def check(ok: bool, what: str) -> None:
 
 def phase(name: str, t0: float) -> None:
     print(f"[{name}] ok in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def temp_dir(prefix: str) -> str:
+    """A work directory that later phases read too; removed at exit."""
+    d = tempfile.mkdtemp(prefix=prefix)
+    atexit.register(shutil.rmtree, d, ignore_errors=True)
+    return d
 
 
 def random_gmm(rng, k, d, device):
@@ -373,6 +442,20 @@ def run_tool(tool, args, kernel_ms, device="cuda"):
     return wall, buf.getvalue()
 
 
+def chain_args(d, out, tier, device):
+    """The config keys every tool of the i-vector chain takes: the corpus
+    under d, models, matrices and vectors under out, the tier's keys."""
+    return ["--torchDevice", device, "--featureFilesPath", d + "/",
+            "--labelFilesPath", d + "/", "--mixtureFilesPath", out + "/",
+            "--matrixFilesPath", out + "/",
+            "--saveVectorFilesPath", out + "/",
+            "--loadVectorFilesPath", out + "/",
+            "--loadFeatureFileFormat", "SPRO4",
+            "--labelSelectedFrames", "speech",
+            "--fastStats", "true" if "fastStats" in tier else "false",
+            "--fastMath", "true" if "fastMath" in tier else "false"]
+
+
 def run_cli_chain(d, lists, tier, device="cuda", tools=CHAIN):
     """TrainWorld → TotalVariability → IvExtractor → IvTest (or the
     first ``tools``) through the port's CLI entry, with the tier's config
@@ -382,15 +465,7 @@ def run_cli_chain(d, lists, tier, device="cuda", tools=CHAIN):
     inside the tools and the scores (when IvTest ran)."""
     out = os.path.join(d, tier or "default")
     os.makedirs(out)
-    common = ["--torchDevice", device, "--featureFilesPath", d + "/",
-              "--labelFilesPath", d + "/", "--mixtureFilesPath", out + "/",
-              "--matrixFilesPath", out + "/",
-              "--saveVectorFilesPath", out + "/",
-              "--loadVectorFilesPath", out + "/",
-              "--loadFeatureFileFormat", "SPRO4",
-              "--labelSelectedFrames", "speech",
-              "--fastStats", "true" if "fastStats" in tier else "false",
-              "--fastMath", "true" if "fastMath" in tier else "false"]
+    common = chain_args(d, out, tier, device)
     steps = [
         ("TrainWorld", ["--inputFeatureFilename", lists["world"],
                         "--mixtureDistribCount", str(K), "--nbTrainIt", "3",
@@ -406,7 +481,12 @@ def run_cli_chain(d, lists, tier, device="cuda", tools=CHAIN):
                               "--totalVariabilityNumber", str(R),
                               "--nbIt", "2", "--initScale", "0.01",
                               "--totalVariabilityMatrix", "TV",
-                              "--meanEstimate", "TVmean"]),
+                              "--meanEstimate", "TVmean",
+                              # for phase 9: the eigenDecomposition
+                              # matrices and the stats checkpoint
+                              "--approximationMode", "eigenDecomposition",
+                              "--accsFilename",
+                              os.path.join(out, "tv_accs.npz")]),
         ("IvExtractor", ["--ndxFilename", lists["all"],
                          "--inputWorldFilename", "wld",
                          "--totalVariabilityMatrix", "TV",
@@ -574,83 +654,607 @@ def check_map_library(d, dev):
     return dmu, mu_max, dllr
 
 
-def run_gmm_ubm(kernels, dev) -> None:
+def gmm_ubm_args(d, device):
+    """The config keys every tool of phases 8 and 10 takes: features,
+    labels and models under d, the normalised features as input."""
+    return ["--torchDevice", device, "--featureFilesPath", d + "/",
+            "--labelFilesPath", d + "/", "--mixtureFilesPath", d + "/",
+            "--loadFeatureFileFormat", "SPRO4",
+            "--saveFeatureFileFormat", "SPRO4",
+            "--loadFeatureFileExtension", ".norm.prm",
+            "--labelSelectedFrames", "speech"]
+
+
+def run_gmm_ubm(kernels, dev):
     """Phase 8: the GMM-UBM chain at full width on 500 files, K1's launch
     counts and device ms per tool, the scores' checks and EERs, then the
-    library-level MAP check."""
-    d = tempfile.mkdtemp(prefix="lia_chip_smoke_gu_")
-    try:
-        lists = write_gmm_ubm_corpus(d, dev)
-        common = ["--torchDevice", dev.type, "--featureFilesPath", d + "/",
-                  "--labelFilesPath", d + "/", "--mixtureFilesPath", d + "/",
-                  "--loadFeatureFileFormat", "SPRO4",
-                  "--saveFeatureFileFormat", "SPRO4",
-                  "--loadFeatureFileExtension", ".norm.prm",
-                  "--labelSelectedFrames", "speech"]
-        walls, k1_ms, k1_launches = {}, {}, {}
-        ck.reset_launch_counts()
-        for label, tool, args in gmm_ubm_steps(d, lists):
-            before = dict(ck.launch_counts)
-            kms = {}
-            walls[label], _ = run_tool(tool, common + args, kms, dev.type)
-            k1_ms[label] = kms.get("em_stats_fused", 0.0)
-            k1_launches[label] = (ck.launch_counts["em_stats_fused"]
-                                  - before["em_stats_fused"])
-        launches = dict(ck.launch_counts)
-        print("  gmm-ubm: tool wall s " + ", ".join(
-            f"{k} {v:.3f}" for k, v in walls.items()))
-        print("  gmm-ubm: K1 device ms (launches) " + ", ".join(
-            f"{k} {k1_ms[k]:.2f} ({k1_launches[k]})" for k in walls
-            if k1_launches[k]))
-        print(f"  gmm-ubm: launches {launches}")
-        # 500 files x 10 EM iterations; 3 EM iterations; 50 models x 3
-        for tool, count in (("EnergyDetector", 5000), ("TrainWorld", 3),
-                            ("TrainTarget", 150)):
-            check(k1_launches[tool] == count,
-                  f"K1 launched {count} times by {tool} "
-                  f"({k1_launches[tool]})")
-        check(all(v == 0 for k, v in launches.items()
-                  if k != "em_stats_fused"),
-              "only the default K1 launched on the GMM-UBM path")
-        n_trials = {"main": N_TGT * N_TGT * 5, "z": N_TGT * 50,
-                    "t": 10 * N_TGT * 5, "zt": 500, "ztnorm": N_TGT * N_TGT * 5}
-        scores = {}
-        for name, n in n_trials.items():
-            lines = read_nist_scores(os.path.join(d, name + ".nist"))
-            check(len(lines) == n, f"{name} score file has {n} lines "
-                  f"({len(lines)})")
-            sc = np.array([r.score for r in lines])
-            check(bool(np.isfinite(sc).all()), f"{name} scores finite")
-            scores[name] = (sc, np.array([r.seg.split("_")[0] == r.model
-                                          for r in lines]))
-        for name in ("main", "ztnorm"):
-            sc, tgt = scores[name]
-            check(int(tgt.sum()) == N_TGT * 5, f"{name}: 200 target trials")
-            print(f"  gmm-ubm [{name}]: mean target LLR "
-                  f"{sc[tgt].mean():.4f}, impostor {sc[~tgt].mean():.4f}; "
-                  f"EER {100 * eer(sc[tgt], sc[~tgt]):.2f} % over "
-                  f"{tgt.sum()} target / {(~tgt).sum()} impostor trials")
+    library-level MAP check.  Returns the work directory, its lists and
+    the raw EER in percent (phase 10 goes on from them)."""
+    d = temp_dir("lia_chip_smoke_gu_")
+    lists = write_gmm_ubm_corpus(d, dev)
+    common = gmm_ubm_args(d, dev.type)
+    walls, k1_ms, k1_launches = {}, {}, {}
+    ck.reset_launch_counts()
+    for label, tool, args in gmm_ubm_steps(d, lists):
+        before = dict(ck.launch_counts)
+        kms = {}
+        walls[label], _ = run_tool(tool, common + args, kms, dev.type)
+        k1_ms[label] = kms.get("em_stats_fused", 0.0)
+        k1_launches[label] = (ck.launch_counts["em_stats_fused"]
+                              - before["em_stats_fused"])
+    launches = dict(ck.launch_counts)
+    print("  gmm-ubm: tool wall s " + ", ".join(
+        f"{k} {v:.3f}" for k, v in walls.items()))
+    print("  gmm-ubm: K1 device ms (launches) " + ", ".join(
+        f"{k} {k1_ms[k]:.2f} ({k1_launches[k]})" for k in walls
+        if k1_launches[k]))
+    print(f"  gmm-ubm: launches {launches}")
+    # 500 files x 10 EM iterations; 3 EM iterations; 50 models x 3
+    for tool, count in (("EnergyDetector", 5000), ("TrainWorld", 3),
+                        ("TrainTarget", 150)):
+        check(k1_launches[tool] == count,
+              f"K1 launched {count} times by {tool} "
+              f"({k1_launches[tool]})")
+    check(all(v == 0 for k, v in launches.items()
+              if k != "em_stats_fused"),
+          "only the default K1 launched on the GMM-UBM path")
+    n_trials = {"main": N_TGT * N_TGT * 5, "z": N_TGT * 50,
+                "t": 10 * N_TGT * 5, "zt": 500, "ztnorm": N_TGT * N_TGT * 5}
+    scores = {}
+    for name, n in n_trials.items():
+        lines = read_nist_scores(os.path.join(d, name + ".nist"))
+        check(len(lines) == n, f"{name} score file has {n} lines "
+              f"({len(lines)})")
+        sc = np.array([r.score for r in lines])
+        check(bool(np.isfinite(sc).all()), f"{name} scores finite")
+        scores[name] = (sc, np.array([r.seg.split("_")[0] == r.model
+                                      for r in lines]))
+    eers = {}
+    for name in ("main", "ztnorm"):
+        sc, tgt = scores[name]
+        check(int(tgt.sum()) == N_TGT * 5, f"{name}: 200 target trials")
+        eers[name] = 100 * eer(sc[tgt], sc[~tgt])
+        print(f"  gmm-ubm [{name}]: mean target LLR "
+              f"{sc[tgt].mean():.4f}, impostor {sc[~tgt].mean():.4f}; "
+              f"EER {eers[name]:.2f} % over "
+              f"{tgt.sum()} target / {(~tgt).sum()} impostor trials")
+        check(sc[tgt].mean() > sc[~tgt].mean(),
+              f"{name}: mean target score above mean impostor score")
+    warp = [os.path.join(d, n[0] + ".warp.prm")
+            for n in read_xlist(lists["warp"])]
+    for path in warp:
+        y = read_feature_file(path, fmt="SPRO4").data
+        check(y.shape == (T_UTT, D) and bool(np.isfinite(y).all()),
+              f"featWarp output {path}")
+    ck.reset_launch_counts()
+    dmu, mu_max, dllr = check_map_library(d, dev)
+    print(f"  gmm-ubm: adapt_model K1 vs plain stats on the card, "
+          f"{MAP_CHECK_CLIENTS} clients: max|Δμ| {dmu:.3e} (max|μ| "
+          f"{mu_max:.3e}); max|ΔLLR| {dllr:.3e} over "
+          f"{MAP_CHECK_SEGS} test segments")
+    for kname, kv in kernels.items():
+        kv["launches_by_path"] = {"cli-ivector": kv["launches"],
+                                  "gmm-ubm": launches[kname]}
+        kv["launches"] += launches[kname]
+        kv["check_launches"] += ck.launch_counts[kname]
+    return d, lists, eers["main"]
+
+
+# -- phase 9: the i-vector back end of configs 3 and 5 ------------------------
+
+PLDA_RANK, LDA_RANK, EFR_ITERATIONS, PLDA_ITERATIONS = 150, 49, 2, 10
+LIB_UTTS = 64           # utterances of the card-vs-CPU extraction checks
+LIB_TOL = 1e-3          # card vs CPU, of the array's scale
+
+
+def k2_batches(n_frames, bucket=2048, batch_size=64) -> int:
+    """K2 launches that ``bw_stats_bucketed`` makes for files of these
+    lengths: one per batch of at most ``batch_size`` files of one padded
+    length (a multiple of ``bucket``)."""
+    by_len = collections.Counter(bucket_len(n, bucket) for n in n_frames)
+    return sum(-(-count // batch_size) for count in by_len.values())
+
+
+def trial_scores(path, n_trials):
+    """(scores, target mask) of a NIST score file whose models and
+    segments are named by speaker; checks the count and finiteness."""
+    lines = read_nist_scores(path)
+    name = os.path.basename(path)
+    check(len(lines) == n_trials, f"{name} has {n_trials} lines "
+          f"({len(lines)})")
+    sc = np.array([r.score for r in lines])
+    check(bool(np.isfinite(sc).all()), f"{name} scores finite")
+    return sc, np.array([r.model.split("_")[0] == r.seg.split("_")[0]
+                         for r in lines])
+
+
+class Agreement:
+    """Card-vs-CPU comparisons of one phase: each prints its error, and
+    ``close`` raises if any was outside its tolerance."""
+
+    def __init__(self, phase_name):
+        self.phase_name, self.failed = phase_name, []
+
+    def __call__(self, what, card, cpu, tol=LIB_TOL):
+        card = card.detach().cpu().double()
+        cpu = cpu.detach().cpu().double()
+        scale = float(cpu.abs().max())
+        err = float((card - cpu).abs().max())
+        print(f"  {self.phase_name} lib {what}: max|card - cpu| {err:.3e} "
+              f"(scale {scale:.3e})")
+        if not (err <= tol * scale and bool(torch.isfinite(card).all())):
+            self.failed.append(what)
+
+    def close(self):
+        check(not self.failed, f"{self.phase_name}: card and CPU disagree "
+              f"beyond tolerance on {self.failed}")
+
+
+def row_projector(rows):
+    """Projector onto the row space, in float64 on the CPU: the same for
+    any two bases of one space."""
+    p = rows.detach().cpu().double()
+    return p.T @ torch.linalg.solve(p @ p.T, p)
+
+
+def check_backend_library(tv, weights, stats, wv, spk_ids):
+    """Every library function of the TV approximations, i-vector
+    normalisation, the scorings and PLDA on the card against the same
+    function on the CPU, from the same inputs: the chain's T, UBM weights
+    and stats (the first LIB_UTTS utterances) and its 500 exact
+    i-vectors.  What an eigensolver or QR leaves open (signs, the basis
+    inside a repeated eigenvalue) is compared through invariants."""
+    agree = Agreement("backend")
+    cpu = torch.device("cpu")
+    tv_c, w_c = tv.to(cpu), weights.cpu()
+    st = BwStats(n=stats.n[:LIB_UTTS], f=stats.f[:LIB_UTTS])
+    st_c = st.to(cpu)
+    agree("norm_t_matrix", norm_t_matrix(tv), norm_t_matrix(tv_c))
+    w_mat = weighted_cov(tv, weights)
+    agree("weighted_cov", w_mat, weighted_cov(tv_c, w_c))
+    w_in = w_mat.cpu()          # from here both start from the card's W
+    agree("estimate_w_ubm_weight", estimate_w_ubm_weight(st, tv, w_mat),
+          estimate_w_ubm_weight(st_c, tv_c, w_in))
+    q, q_c = eigen_decompose_w(w_mat), eigen_decompose_w(w_in)
+    spectra = []
+    for name, qq, ww in (("card", q, w_mat), ("CPU", q_c, w_in)):
+        lam = qq.T @ ww @ qq
+        diag = torch.diagonal(lam)
+        agree(f"eigen_decompose_w QᵀWQ diagonal ({name})", lam,
+              torch.diag(diag))
+        agree(f"eigen_decompose_w QᵀQ = I ({name})", qq.T @ qq,
+              torch.eye(qq.shape[0]))
+        spectra.append(diag)
+    agree("eigen_decompose_w spectrum", *spectra)
+    d_mat = approximate_tctc(tv, q)
+    agree("approximate_tctc", d_mat, approximate_tctc(tv_c, q.cpu()))
+    agree("estimate_w_eigen_decomposition",
+          estimate_w_eigen_decomposition(st, tv, d_mat, q),
+          estimate_w_eigen_decomposition(st_c, tv_c, d_mat.cpu(), q.cpu()))
+    # QR leaves each row's sign open: both results have orthonormal rows
+    # of one space, so A·Bᵀ is orthogonal
+    ab = (orthonormalize_t(tv).t_flat().cpu().double()
+          @ orthonormalize_t(tv_c).t_flat().double().T)
+    agree("orthonormalize_t (A·Bᵀ)(A·Bᵀ)ᵀ = I", ab @ ab.T,
+          torch.eye(ab.shape[0]))
+
+    dset = DevSet(wv, spk_ids, N_SPK)
+    dset_c = dset.to(cpu)
+    agree("length_norm", length_norm(wv), length_norm(wv.cpu()))
+    for name, a, b in zip(("Sigma", "W", "B"), compute_cov_matrices(dset),
+                          compute_cov_matrices(dset_c)):
+        agree(f"compute_cov_matrices {name}", a, b)
+    for mode in ("sphNorm", "EFR"):
+        xn, params = efr_iterations(dset, EFR_ITERATIONS, mode)
+        xn_c, _ = efr_iterations(dset_c, EFR_ITERATIONS, mode)
+        # whitening rows are eigenvectors: compare the vectors' Gram matrix
+        agree(f"efr_iterations[{mode}] Gram", xn @ xn.T, xn_c @ xn_c.T)
+    agree("apply_efr", apply_efr(wv, params),
+          apply_efr(wv.cpu(), [(m.cpu(), mat.cpu()) for m, mat in params]))
+    ndev = dset.replace(vectors=xn)     # the EFR-normalised vectors, on both
+    ndev_c = ndev.to(cpu)
+    agree("compute_lda row-space projector",
+          row_projector(compute_lda(ndev, LDA_RANK)),
+          row_projector(compute_lda(ndev_c, LDA_RANK)))
+    wccn = compute_wccn(ndev)
+    agree("compute_wccn", wccn, compute_wccn(ndev_c))
+    maha = compute_mahalanobis(ndev)
+    agree("compute_mahalanobis", maha, compute_mahalanobis(ndev_c))
+    models, tests, _ = ivector_trials(xn)
+    m_c, t_c = models.cpu(), tests.cpu()
+    agree("cosine_scores (WCCN)", cosine_scores(models, tests, wccn=wccn),
+          cosine_scores(m_c, t_c, wccn=wccn.cpu()))
+    agree("mahalanobis_scores", mahalanobis_scores(models, tests, maha),
+          mahalanobis_scores(m_c, t_c, maha.cpu()))
+    _, w_cov, b_cov = compute_cov_matrices(ndev)
+    for name, a, b in zip(("G'", "H'"), two_cov_model(w_cov, b_cov),
+                          two_cov_model(w_cov.cpu(), b_cov.cpu())):
+        agree(f"two_cov_model {name}", a, b)
+    agree("two_cov_scores", two_cov_scores(models, tests, w_cov, b_cov),
+          two_cov_scores(m_c, t_c, w_cov.cpu(), b_cov.cpu()))
+    mean = xn.mean(0)
+    xc = xn - mean
+    ns = torch.full((N_SPK,), float(UTT_PER_SPK // 2))
+    for rank_g in (0, 20):
+        init = PldaModel.init(torch.Generator().manual_seed(3), R, PLDA_RANK,
+                              rank_g, data_mean=mean.cpu(),
+                              data_cov=(xc.T @ xc / xn.shape[0]).cpu())
+        one = plda_em_iteration(init.to(xn.device), ndev)
+        one_c = plda_em_iteration(init, ndev_c)
+        for f in dataclasses.fields(PldaModel):
+            if getattr(one_c, f.name).numel():
+                agree(f"plda_em_iteration (rank_g {rank_g}) {f.name}",
+                      getattr(one, f.name), getattr(one_c, f.name))
+        agree(f"plda_llr (rank_g {rank_g})",
+              plda_llr(one, models, ns.to(xn.device), tests),
+              plda_llr(one_c, m_c, ns, t_c))
+    trained = plda_train(None, ndev, PLDA_RANK, n_iterations=3, init=init)
+    trained_c = plda_train(None, ndev_c, PLDA_RANK, n_iterations=3, init=init)
+    agree("plda_train (3 iterations) → plda_llr",
+          plda_llr(trained, models, ns.to(xn.device), tests),
+          plda_llr(trained_c, m_c, ns, t_c))
+    agree.close()
+
+
+def run_backend(d, lists, kernels, dev) -> None:
+    """Phase 9: on the default-tier chain of phase 6 (its UBM, T, stats
+    checkpoint and 500 exact i-vectors under d/default), the approximate
+    extractions, IvNorm → PLDA → IvTest in every scoring, a rerun, and
+    the library functions on the card against the CPU."""
+    out = os.path.join(d, "default")
+    names = [row[0] for row in read_xlist(lists["all"])]
+    dev_ndx = os.path.join(d, "dev.ndx")
+    write_xlist(dev_ndx, [[f"spk{s:02d}"] + names[s * UTT_PER_SPK:
+                                                  (s + 1) * UTT_PER_SPK]
+                          for s in range(N_SPK)])
+    common = chain_args(d, out, "", dev.type)
+    walls, k2_ms = {}, {}
+
+    def tool(label, name, args):
+        kms = {}
+        walls[label], _ = run_tool(name, common + args, kms, dev.type)
+        k2_ms[label] = kms.get("bw_stats_fused", 0.0)
+
+    def subdir(name):
+        os.makedirs(os.path.join(out, name), exist_ok=True)
+        return os.path.join(out, name) + "/"
+
+    def vectors(path):
+        return torch.as_tensor(load_vectors(names, Config(
+            {"loadVectorFilesPath": path})), device=dev)
+
+    # the ubmWeight matrix at library level (TotalVariability wrote the
+    # eigenDecomposition pair), then both approximate extractions
+    gmm = GmmDiag.load(os.path.join(out, "wld.gmm"), device=dev)
+    tv = TvModel.load(os.path.join(out, "TV.matx"), gmm)
+    tv = tv.replace(ubm_means=torch.as_tensor(
+        read_matrix_file(os.path.join(out, "TVmean.matx")).reshape(K, D),
+        dtype=torch.float32, device=dev))
+    stats, stat_names = load_stats(os.path.join(out, "tv_accs.npz"),
+                                   device=dev)
+    check(stat_names == names, "the stats checkpoint lists the 500 sessions")
+    w_mat = weighted_cov(tv, gmm.weights)
+    write_matrix_file(os.path.join(out, "TV_weightedCov.matx"),
+                      w_mat.cpu().numpy().astype(np.float64))
+    extract = ["--ndxFilename", lists["all"], "--inputWorldFilename", "wld",
+               "--totalVariabilityMatrix", "TV", "--meanEstimate", "TVmean"]
+    ck.reset_launch_counts()
+    tool("IvExtractor[ubmWeight]", "IvExtractor", extract + [
+        "--ivExtractionMode", "ubmWeight", "--loadAccs", "true",
+        "--accsFilename", os.path.join(out, "tv_accs.npz"),
+        "--saveVectorFilesPath", subdir("ubw")])
+    check(not any(ck.launch_counts.values()),
+          "IvExtractor with loadAccs launches no kernel")
+    tool("IvExtractor[eigenDecomposition]", "IvExtractor", extract + [
+        "--ivExtractionMode", "eigenDecomposition",
+        "--saveVectorFilesPath", subdir("eig")])
+    exact = vectors(out + "/")
+    for mode in ("ubw", "eig"):
+        approx = vectors(subdir(mode))
+        check(bool(torch.isfinite(approx).all()), f"{mode} i-vectors finite")
+        cos = torch.nn.functional.cosine_similarity(approx, exact, dim=-1)
+        print(f"  backend: {mode} i-vectors against the exact ones: mean "
+              f"cosine {float(cos.mean()):.4f} (min {float(cos.min()):.4f})")
+    lib = estimate_w_ubm_weight(stats, tv, w_mat)
+    dw = float((lib - vectors(subdir("ubw"))).abs().max())
+    check(dw <= 1e-5 * float(lib.abs().max()), "estimate_w_ubm_weight at "
+          f"library level gives the tool's vectors (max|diff| {dw:.3e})")
+
+    # IvNorm (EFR) → PLDA → IvTest in every scoring.  The corpus has no
+    # separate dev set: all 500 i-vectors (50 speakers x 10 sessions), the
+    # trial sessions included, estimate every back-end matrix
+    trial = ["--targetIdList", lists["targets"], "--ndxFilename",
+             lists["trials"], "--backgroundNdxFilename", dev_ndx]
+    efr = ["--ivNormIterationNb", str(EFR_ITERATIONS), "--ivNormEfrMode",
+           "EFR"]
+
+    def norm_plda_test(name, tag=""):
+        """IvNorm → PLDA → IvTest (plda) with every output under
+        out/<name>; returns the score file."""
+        sub = subdir(name)
+        tool(f"IvNorm{tag}", "IvNorm", efr + [
+            "--backgroundNdxFilename", dev_ndx, "--inputVectorFilename",
+            lists["all"], "--saveVectorFilesPath", sub,
+            "--matrixFilesPath", sub])
+        tool(f"PLDA{tag}", "PLDA", [
+            "--backgroundNdxFilename", dev_ndx, "--loadVectorFilesPath", sub,
+            "--pldaEigenVoiceNumber", str(PLDA_RANK), "--pldaNbIt",
+            str(PLDA_ITERATIONS), "--matrixFilesPath", sub,
+            "--pldaModelFilename", sub + "plda.npz"])
+        tool(f"IvTest[plda]{tag}", "IvTest", trial + [
+            "--scoring", "plda", "--loadVectorFilesPath", sub,
+            "--pldaModelFilename", sub + "plda.npz",
+            "--outputFilename", sub + "plda.nist"])
+        return sub + "plda.nist"
+
+    plda_file = norm_plda_test("norm")
+    norm = subdir("norm")
+    normed = vectors(norm)
+    dn = float((torch.linalg.norm(normed, dim=-1) - 1.0).abs().max())
+    check(dn <= 1e-5, f"IvNorm's vectors have unit norm ({dn:.3e})")
+    params = [tuple(torch.as_tensor(read_matrix_file(
+        f"{norm}EFR_ivNormEfr{part}_it{it}.matx"), dtype=torch.float32,
+        device=dev) for part in ("Mean", "Matrix"))
+        for it in range(EFR_ITERATIONS)]
+    de = float((apply_efr(exact, [(m.ravel(), mat) for m, mat in params])
+                - normed).abs().max())
+    check(de <= 1e-5, "IvNorm's vectors are apply_efr of its saved "
+          f"per-iteration files ({de:.3e})")
+    modes = {
+        "cosine+WCCN": (norm, ["--scoring", "cosine", "--wccn", "true",
+                               "--wccnMatrix", "wccn"]),
+        "mahalanobis": (norm, ["--scoring", "mahalanobis",
+                               "--mahalanobisMatrix", "mahalanobis"]),
+        "2cov": (norm, ["--scoring", "2cov"]),
+        # LDA is estimated inside IvTest, on its own EFR of the raw vectors
+        "LDA": (out + "/", efr + ["--scoring", "cosine", "--ivNorm", "true",
+                                  "--ldaRank", str(LDA_RANK), "--ldaMatrix",
+                                  "lda", "--matrixFilesPath", subdir("lda")]),
+    }
+    files = {"plda": plda_file}
+    for mode, (vec_dir, args) in modes.items():
+        files[mode] = os.path.join(out, f"scores_{mode}.nist")
+        tool(f"IvTest[{mode}]", "IvTest", trial + args + [
+            "--loadVectorFilesPath", vec_dir, "--outputFilename",
+            files[mode]])
+    lda = read_matrix_file(os.path.join(out, "lda", "lda.matx"))
+    check(lda.shape == (LDA_RANK, R) and bool(np.isfinite(lda).all()),
+          "IvTest wrote the LDA matrix")
+    n_trials = N_SPK * N_SPK * (UTT_PER_SPK // 2)
+    print(f"  backend: dev set = the {len(names)} i-vectors of the trials' "
+          f"own sessions (no separate dev set); PLDA rank {PLDA_RANK} on "
+          f"{N_SPK} speakers")
+    for mode, path in files.items():
+        sc, tgt = trial_scores(path, n_trials)
+        print(f"  backend [{mode}]: mean target score {sc[tgt].mean():.4f}, "
+              f"impostor {sc[~tgt].mean():.4f}; EER "
+              f"{100 * eer(sc[tgt], sc[~tgt]):.2f} % over {tgt.sum()} "
+              f"target / {(~tgt).sum()} impostor trials")
+        if mode in ("cosine+WCCN", "plda", "2cov"):
             check(sc[tgt].mean() > sc[~tgt].mean(),
-                  f"{name}: mean target score above mean impostor score")
-        warp = [os.path.join(d, n[0] + ".warp.prm")
-                for n in read_xlist(lists["warp"])]
-        for path in warp:
-            y = read_feature_file(path, fmt="SPRO4").data
-            check(y.shape == (T_UTT, D) and bool(np.isfinite(y).all()),
-                  f"featWarp output {path}")
-        ck.reset_launch_counts()
-        dmu, mu_max, dllr = check_map_library(d, dev)
-        print(f"  gmm-ubm: adapt_model K1 vs plain stats on the card, "
-              f"{MAP_CHECK_CLIENTS} clients: max|Δμ| {dmu:.3e} (max|μ| "
-              f"{mu_max:.3e}); max|ΔLLR| {dllr:.3e} over "
-              f"{MAP_CHECK_SEGS} test segments")
-        for kname, kv in kernels.items():
-            kv["launches_by_path"] = {"cli-ivector": kv["launches"],
-                                      "gmm-ubm": launches[kname]}
-            kv["launches"] += launches[kname]
-            kv["check_launches"] += ck.launch_counts[kname]
-    finally:
-        shutil.rmtree(d, ignore_errors=True)
+                  f"{mode}: mean target score above mean impostor score")
+    rerun = norm_plda_test("rerun", " (rerun)")
+    with open(plda_file, "rb") as f1, open(rerun, "rb") as f2:
+        check(f1.read() == f2.read(), "a rerun of IvNorm → PLDA → "
+              "IvTest (plda) reproduces every score to the digit")
+    # the path's launches: the eigenDecomposition IvExtractor's stats
+    launches = dict(ck.launch_counts)
+    want = k2_batches([T_UTT] * len(names))
+    check(launches["bw_stats_fused"] == want and sum(launches.values())
+          == want, f"K2 launched {want} times on the back-end path, by the "
+          f"eigenDecomposition IvExtractor, and nothing else ({launches})")
+    print("  backend: tool wall s " + ", ".join(
+        f"{k} {v:.3f}" for k, v in walls.items()))
+    print("  backend: K2 device ms " + ", ".join(
+        f"{k} {v:.2f}" for k, v in k2_ms.items() if v)
+        + f"; launches {launches}")
+    for kname, kv in kernels.items():
+        kv["launches_by_path"]["backend"] = launches[kname]
+        kv["launches"] += launches[kname]
+    spk_ids = torch.arange(N_SPK, device=dev).repeat_interleave(UTT_PER_SPK)
+    t1 = time.perf_counter()
+    check_backend_library(tv, gmm.weights, stats, exact, spk_ids)
+    print(f"  backend: library functions card vs CPU in "
+          f"{time.perf_counter() - t1:.1f} s")
+
+
+# -- phase 10: the JFA system of config 4 -------------------------------------
+
+JFA_RV, JFA_RU, JFA_ITERATIONS = 300, 100, 2
+LFA_SEGS, LFA_TAU = 20, 16.0
+
+
+def run_jfa(d, lists, raw_eer, kernels, dev) -> None:
+    """Phase 10: on phase 8's normalised features, labels, world model
+    and MAP clients under d: ComputeJFAStats → EigenVoice → EigenChannel
+    → EstimateDMatrix → TrainTarget (JFA) → ComputeTest (jfa), then the
+    LFA tools; K2's launch counts per tool, the V-iteration likelihoods
+    and the D update at library level."""
+    torch.cuda.reset_peak_memory_stats()
+    common = gmm_ubm_args(d, dev.type) + ["--matrixFilesPath", d + "/",
+                                          "--inputWorldFilename", "wld"]
+    accs = os.path.join(d, "jfa_accs.npz")
+    load = ["--loadAccs", "true", "--accsFilename", accs, "--nbIt",
+            str(JFA_ITERATIONS)]
+    models = read_xlist(lists["models"])
+    targets = os.path.join(d, "jfa_targets.ndx")
+    write_xlist(targets, models[:N_TGT])
+    lfa_ndx = os.path.join(d, "lfa.ndx")
+    write_xlist(lfa_ndx, read_xlist(lists["main"])[:LFA_SEGS])
+    world = GmmDiag.load(os.path.join(d, "wld.gmm"), device=dev)
+    # EstimateDMatrix starts from D = 0, a fixed point of its update (z =
+    # D·Σ⁻¹·F̃/(τ + N·D²Σ⁻¹) = 0): it writes zeros.  TrainTarget enrols
+    # with the relevance-MAP diagonal D = sqrt(Σ/τ) instead
+    d_map = torch.sqrt(1.0 / (world.cov_inv * LFA_TAU))
+    write_matrix_file(os.path.join(d, "Dmap.matx"),
+                      d_map.reshape(1, -1).cpu().numpy().astype(np.float64))
+    # ComputeTest reads the world with the clients' extension
+    shutil.copy(os.path.join(d, "wld.gmm"), os.path.join(d, "wld.jfa.gmm"))
+    steps = [
+        ("ComputeJFAStats", "ComputeJFAStats",
+         ["--ndxFilename", lists["models"], "--accsFilename", accs]),
+        ("EigenVoice", "EigenVoice",
+         load + ["--eigenVoiceNumber", str(JFA_RV), "--eigenVoiceMatrix",
+                 "EV"]),
+        ("EigenChannel", "EigenChannel",
+         load + ["--eigenVoiceMatrix", "EV", "--eigenChannelNumber",
+                 str(JFA_RU), "--eigenChannelMatrix", "EC"]),
+        ("EstimateDMatrix", "EstimateDMatrix",
+         load + ["--eigenVoiceMatrix", "EV", "--eigenChannelMatrix", "EC",
+                 "--DMatrix", "D"]),
+        ("TrainTarget[JFA]", "TrainTarget",
+         ["--targetIdList", targets, "--channelCompensation", "JFA",
+          "--eigenVoiceMatrix", "EV", "--eigenChannelMatrix", "EC",
+          "--DMatrix", "Dmap", "--saveMixtureFileExtension", ".jfa.gmm"]),
+        ("ComputeTest[jfa]", "ComputeTest",
+         ["--computeTestMode", "jfa", "--ndxFilename", lists["main"],
+          "--loadMixtureFileExtension", ".jfa.gmm", "--eigenVoiceMatrix",
+          "EV", "--eigenChannelMatrix", "EC", "--topDistribsCount", "10",
+          "--outputFilename", os.path.join(d, "jfa.nist")]),
+        ("NormFeat[featLFA]", "NormFeat",
+         ["--inputFeatureFilename", lists["warp"], "--mode", "featLFA",
+          "--eigenChannelMatrix", "EC", "--regulationFactor", str(LFA_TAU),
+          "--saveFeatureFileExtension", ".lfa.prm"]),
+        ("ComputeTest[lfa]", "ComputeTest",
+         ["--computeTestMode", "lfa", "--ndxFilename", lfa_ndx,
+          "--eigenChannelMatrix", "EC", "--regulationFactor", str(LFA_TAU),
+          "--topDistribsCount", "10",
+          "--outputFilename", os.path.join(d, "lfa.nist")]),
+    ]
+    walls, k2_ms, k2_launches = {}, {}, {}
+    ck.reset_launch_counts()
+    for label, tool, args in steps:
+        before = ck.launch_counts["bw_stats_fused"]
+        kms = {}
+        walls[label], _ = run_tool(tool, common + args, kms, dev.type)
+        k2_ms[label] = kms.get("bw_stats_fused", 0.0)
+        k2_launches[label] = ck.launch_counts["bw_stats_fused"] - before
+    launches = dict(ck.launch_counts)
+    print("  jfa: tool wall s " + ", ".join(
+        f"{k} {v:.3f}" for k, v in walls.items()))
+    print("  jfa: K2 device ms (launches) " + ", ".join(
+        f"{k} {k2_ms[k]:.2f} ({k2_launches[k]})" for k in walls
+        if k2_launches[k]))
+    print(f"  jfa: launches {launches}")
+    n_segs = len(read_xlist(lists["main"]))
+    per_seg = {mode: 1e3 * walls[f"ComputeTest[{mode}]"] / n
+               for mode, n in (("jfa", n_segs), ("lfa", LFA_SEGS))}
+    print(f"  jfa: ComputeTest[jfa] {per_seg['jfa']:.1f} ms per test segment "
+          f"({n_segs} segments x {N_TGT} clients), ComputeTest[lfa] "
+          f"{per_seg['lfa']:.1f} ms ({LFA_SEGS} segments)")
+
+    def frames(name):
+        return read_feature_file(os.path.join(d, name + ".norm.prm"),
+                                 fmt="SPRO4").data.shape[0]
+
+    expected = {"ComputeJFAStats": k2_batches(
+        [frames(f) for row in models for f in row[1:]]),
+        "TrainTarget[JFA]": k2_batches(
+        [frames(f) for row in models[:N_TGT] for f in row[1:]])}
+    for label in walls:
+        count = expected.get(label, 0)
+        check(k2_launches[label] == count, f"K2 launched {count} times by "
+              f"{label} ({k2_launches[label]})")
+    check(sum(launches.values()) == sum(expected.values()),
+          "only the default K2 launched on the JFA path")
+
+    # V and U: finite and moved off the tools' init (seed 0, drawn on the
+    # card as the tools draw it)
+    def subspace(name, rank):
+        mat = read_matrix_file(os.path.join(d, name + ".matx"))
+        check(mat.shape == (rank, K * D) and bool(np.isfinite(mat).all()),
+              f"{name} is a finite ({rank}, K·D) matrix")
+        return torch.as_tensor(mat.reshape(rank, K, D), dtype=torch.float32,
+                               device=dev)
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    v, u = subspace("EV", JFA_RV), subspace("EC", JFA_RU)
+    v0 = JfaModel.init(seeded(), JFA_RV, 1, world).v
+    u0 = JfaModel.init(seeded(), 1, JFA_RU, world).u
+    for name, got, init in (("V", v, v0), ("U", u, u0)):
+        moved = float((got - init).abs().max())
+        print(f"  jfa: {name} max|·| {float(got.abs().max()):.3e}, moved "
+              f"{moved:.3e} from its init (max|init| "
+              f"{float(init.abs().max()):.3e})")
+        check(moved > 0, f"{name} changed from its init")
+    check(not subspace("D", 1).any(), "EstimateDMatrix from D = 0 writes "
+          "zeros (the update's fixed point, in the JAX tool too)")
+
+    # the V iterations at library level from the tool's init: its V, and
+    # the EM likelihood of 2 sessions under m + V·y
+    sess, _ = load_stats(accs, device=dev)
+    stats = JfaStats.from_sessions(sess, np.load(accs + ".spk.npy"), N_SPK)
+    cfg = Config({"featureFilesPath": d + "/", "labelFilesPath": d + "/",
+                  "loadFeatureFileFormat": "SPRO4",
+                  "loadFeatureFileExtension": ".norm.prm",
+                  "labelSelectedFrames": "speech"})
+    loaded = [load_features_and_mask([name], cfg) for name in models[0][1:3]]
+    xf = torch.stack([torch.as_tensor(fs.data, device=dev)
+                      for fs, _ in loaded])
+    mask = torch.stack([torch.as_tensor(m, device=dev) for _, m in loaded])
+    model = JfaModel.init(seeded(), JFA_RV, 1, world)
+    x0 = torch.zeros((stats.sess.n.shape[0], 1), device=dev)
+    z0 = torch.zeros((N_SPK, K, D), device=dev)
+    llks = []
+    for it in range(JFA_ITERATIONS + 1):
+        y, _ = estimate_y(stats, model, x0, z0)
+        llks.append(jfa_verify_em_llk(xf, mask, stats, model, world.weights,
+                                      y, x0, z0, max_sessions=2))
+        if it < JFA_ITERATIONS:
+            model, _ = jfa_v_iteration(stats, model, x0, z0)
+    dv = float((model.v - v).abs().max())
+    print("  jfa: LLK of 2 sessions (sum of their mean frame LLKs) before "
+          "and after each V iteration: " + ", ".join(f"{v_:.5f}"
+                                                     for v_ in llks)
+          + f"; library V against EigenVoice's file max|diff| {dv:.3e}")
+    check(dv <= 1e-4 * float(v.abs().max()), "the library's V iterations "
+          "give EigenVoice's matrix")
+    for a, b in zip(llks, llks[1:]):     # 1e-3 nats/frame for each session
+        check(b >= a - 2e-3, f"JFA LLK decreased over a V iteration: {llks}")
+    # the D update from a non-zero D moves it and stays finite
+    full = JfaModel(v=v, u=u, d=d_map, ubm_means=world.means,
+                    ubm_inv_var=world.cov_inv)
+    del model, v0, u0
+    y, _ = estimate_y(stats, full, torch.zeros(
+        (stats.sess.n.shape[0], JFA_RU), device=dev), z0)
+    x, _ = estimate_x(stats, full, y, z0)
+    d_new = jfa_d_iteration(stats, full, y, x, tau=LFA_TAU)[0].d
+    moved = float((d_new - d_map).abs().max())
+    print(f"  jfa: jfa_d_iteration from D = sqrt(Σ/τ): max|D| "
+          f"{float(d_new.abs().max()):.3e}, moved {moved:.3e}")
+    check(bool(torch.isfinite(d_new).all()) and moved > 0,
+          "the D update from a non-zero D is finite and moves D")
+
+    sc, tgt = trial_scores(os.path.join(d, "jfa.nist"), N_TGT * N_TGT * 5)
+    jfa_eer = 100 * eer(sc[tgt], sc[~tgt])
+    print(f"  jfa [jfa]: mean target LLR {sc[tgt].mean():.4f}, impostor "
+          f"{sc[~tgt].mean():.4f}; EER {jfa_eer:.2f} % (phase 8's raw MAP "
+          f"EER on the same trials {raw_eer:.2f} %; the corpus has no "
+          "channel variation)")
+    check(sc[tgt].mean() > sc[~tgt].mean(),
+          "jfa: mean target score above mean impostor score")
+    sc, tgt = trial_scores(os.path.join(d, "lfa.nist"), LFA_SEGS * N_TGT)
+    print(f"  jfa [lfa]: mean target LLR {sc[tgt].mean():.4f}, impostor "
+          f"{sc[~tgt].mean():.4f} over {LFA_SEGS} segments")
+    changed = 0.0
+    lfa_files = read_xlist(lists["warp"])
+    for row in lfa_files:
+        y_ = read_feature_file(os.path.join(d, row[0] + ".lfa.prm"),
+                               fmt="SPRO4").data
+        x_ = read_feature_file(os.path.join(d, row[0] + ".norm.prm"),
+                               fmt="SPRO4").data
+        check(y_.shape == x_.shape and bool(np.isfinite(y_).all()),
+              f"featLFA output of {row[0]}")
+        changed = max(changed, float(np.abs(y_ - x_).max()))
+    check(changed > 0, "featLFA removed a channel offset")
+    print(f"  jfa: featLFA on {len(lfa_files)} files moved frames by at most "
+          f"{changed:.3e}; peak device memory of the phase "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for kname, kv in kernels.items():
+        kv["launches_by_path"]["jfa"] = launches[kname]
+        kv["launches"] += launches[kname]
 
 
 def cuda_ms(fn) -> float:
@@ -839,104 +1443,101 @@ def main() -> int:
     t0 = time.perf_counter()
     lens = mask.sum(1).to(torch.int64).cpu().numpy()
     xu_np = xu.cpu().numpy()
-    workdir = tempfile.mkdtemp(prefix="lia_chip_smoke_")
-    try:
-        lists = write_corpus(workdir, xu_np, lens)
-        chains = {}
-        for tier in ("", "fastStats"):
-            ck.reset_launch_counts()
-            chains[tier] = run_cli_chain(workdir, lists, tier)
-            chains[tier]["launches"] = dict(ck.launch_counts)
-        # the fastMath key reaches K1 through TrainWorld only (no tool
-        # passes it to K2): TrainWorld alone in both fastMath tiers
-        fm_runs = {}
-        for tier in ("fastMath", "fastMath+fastStats"):
-            ck.reset_launch_counts()
-            fm_runs[tier] = run_cli_chain(workdir, lists, tier,
-                                          tools=("TrainWorld",))
-            fm_runs[tier]["launches"] = dict(ck.launch_counts)
+    workdir = temp_dir("lia_chip_smoke_")
+    lists = write_corpus(workdir, xu_np, lens)
+    chains = {}
+    for tier in ("", "fastStats"):
+        ck.reset_launch_counts()
+        chains[tier] = run_cli_chain(workdir, lists, tier)
+        chains[tier]["launches"] = dict(ck.launch_counts)
+    # the fastMath key reaches K1 through TrainWorld only (no tool
+    # passes it to K2): TrainWorld alone in both fastMath tiers
+    fm_runs = {}
+    for tier in ("fastMath", "fastMath+fastStats"):
+        ck.reset_launch_counts()
+        fm_runs[tier] = run_cli_chain(workdir, lists, tier,
+                                      tools=("TrainWorld",))
+        fm_runs[tier]["launches"] = dict(ck.launch_counts)
 
-        def final_llk(label, res):
-            """The chain UBM's corpus meanLLK (default-tier plain stats),
-            after the per-iteration meanLLK are checked non-decreasing."""
-            chain_ubm = GmmDiag.load(os.path.join(workdir, label, "wld.gmm"),
-                                     device=dev)
-            v = float(ck.em_stats_reference(
-                xu.reshape(-1, D), mask.reshape(-1), chain_ubm).mean_llk())
-            llks = res["llks"] + [v]
-            print(f"  chain [{label}]: meanLLK per EM iteration (last = "
-                  "final UBM): " + ", ".join(f"{u:.5f}" for u in llks))
-            check(len(res["llks"]) == 3, f"{label}: 3 EM iterations seen")
-            for a, b in zip(llks, llks[1:]):
-                check(b >= a - 1e-3, f"{label} meanLLK decreased: {llks}")
-            wall = sum(res["walls"].values())
-            kms = res["kernel_ms"]
-            print(f"  chain [{label}]: tool wall s " + ", ".join(
-                f"{k} {u:.3f}" for k, u in res["walls"].items())
-                + "; kernel device ms " + ", ".join(
-                f"{k} {u:.2f}" for k, u in kms.items())
-                + f" ({100 * sum(kms.values()) / 1e3 / wall:.2f} % of "
-                f"{wall:.3f} s)")
-            return v
+    def final_llk(label, res):
+        """The chain UBM's corpus meanLLK (default-tier plain stats),
+        after the per-iteration meanLLK are checked non-decreasing."""
+        chain_ubm = GmmDiag.load(os.path.join(workdir, label, "wld.gmm"),
+                                 device=dev)
+        v = float(ck.em_stats_reference(
+            xu.reshape(-1, D), mask.reshape(-1), chain_ubm).mean_llk())
+        llks = res["llks"] + [v]
+        print(f"  chain [{label}]: meanLLK per EM iteration (last = "
+              "final UBM): " + ", ".join(f"{u:.5f}" for u in llks))
+        check(len(res["llks"]) == 3, f"{label}: 3 EM iterations seen")
+        for a, b in zip(llks, llks[1:]):
+            check(b >= a - 1e-3, f"{label} meanLLK decreased: {llks}")
+        wall = sum(res["walls"].values())
+        kms = res["kernel_ms"]
+        print(f"  chain [{label}]: tool wall s " + ", ".join(
+            f"{k} {u:.3f}" for k, u in res["walls"].items())
+            + "; kernel device ms " + ", ".join(
+            f"{k} {u:.2f}" for k, u in kms.items())
+            + f" ({100 * sum(kms.values()) / 1e3 / wall:.2f} % of "
+            f"{wall:.3f} s)")
+        return v
 
-        final = {}
-        for tier, res in chains.items():
-            label = tier or "default"
-            launches = res["launches"]
-            print(f"  chain [{label}]: launches {launches}")
-            # K1: 3 EM iterations; K2: 8 batches in each of
-            # TotalVariability and IvExtractor
-            for kname, count in (("em_stats_fused", 3),
-                                 ("bw_stats_fused", 16)):
-                key = entry(kname, tier)
-                check(launches[key] == count, f"{key} launched {count} "
-                      f"times in the {label} chain ({launches[key]})")
-                kernels[key]["launches"] = launches[key]
-                if tier:
-                    check(launches[kname] == 0,
-                          f"default {kname} not launched in the {label} "
-                          "chain")
-            scores = res["scores"]
-            check(len(scores) == N_SPK * N_SPK * (UTT_PER_SPK // 2),
-                  f"{label} score file has 12,500 lines")
-            sc = np.array([r.score for r in scores])
-            check(bool(np.isfinite(sc).all()), f"{label} scores finite")
-            tgt = np.array([r.model.split("_")[0] == r.seg.split("_")[0]
-                            for r in scores])
-            print(f"  chain [{label}]: cosine EER "
-                  f"{100 * eer(sc[tgt], sc[~tgt]):.2f} % over {tgt.sum()} "
-                  f"target / {(~tgt).sum()} impostor trials")
-            final[tier] = final_llk(label, res)
-        for tier, res in fm_runs.items():
-            launches = res["launches"]
-            key = entry("em_stats_fused", tier)
-            print(f"  TrainWorld [{tier}]: launches {launches}")
-            check(launches[key] > 0, f"{key} launched by TrainWorld")
-            check(all(v == 0 for k, v in launches.items() if k != key),
-                  f"only {key} launched by TrainWorld [{tier}]")
+    final = {}
+    for tier, res in chains.items():
+        label = tier or "default"
+        launches = res["launches"]
+        print(f"  chain [{label}]: launches {launches}")
+        # K1: 3 EM iterations; K2: 8 batches in each of
+        # TotalVariability and IvExtractor
+        for kname, count in (("em_stats_fused", 3),
+                             ("bw_stats_fused", 16)):
+            key = entry(kname, tier)
+            check(launches[key] == count, f"{key} launched {count} "
+                  f"times in the {label} chain ({launches[key]})")
             kernels[key]["launches"] = launches[key]
-            final[tier] = final_llk(tier, res)
-            # bf16 logits move occupancies by percents (the JAX suite's
-            # own fastMath EM budget is 5e-3 at toy size)
-            dl = abs(final[tier] - final[""])
-            print(f"  final UBM meanLLK {tier} {final[tier]:.7f} (|diff| to "
-                  f"default {dl:.2e})")
-            check(dl <= 5e-2, f"{tier} and default final UBM meanLLK within "
-                  "5e-2 nats/frame")
-        for tier in fm_runs:        # no tool passes fastMath to K2
-            kernels[entry("bw_stats_fused", tier)]["launches"] = 0
-        dl = abs(final[""] - final["fastStats"])
-        print(f"  final UBM meanLLK default {final['']:.7f}, fastStats "
-              f"{final['fastStats']:.7f} (|diff| {dl:.2e})")
-        ubms = [GmmDiag.load(os.path.join(workdir, t or "default",
-                                          "wld.gmm")) for t in chains]
-        print("  default vs fastStats UBM: max|diff| " + ", ".join(
-            f"{f} {float((getattr(ubms[0], f) - getattr(ubms[1], f)).abs().max()):.3e}"
-            for f in ("weights", "means", "cov_inv")))
-        check(dl <= 1e-2, "default and fastStats chains' final UBM meanLLK "
-              "within 1e-2 nats/frame")
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+            if tier:
+                check(launches[kname] == 0,
+                      f"default {kname} not launched in the {label} "
+                      "chain")
+        scores = res["scores"]
+        check(len(scores) == N_SPK * N_SPK * (UTT_PER_SPK // 2),
+              f"{label} score file has 12,500 lines")
+        sc = np.array([r.score for r in scores])
+        check(bool(np.isfinite(sc).all()), f"{label} scores finite")
+        tgt = np.array([r.model.split("_")[0] == r.seg.split("_")[0]
+                        for r in scores])
+        print(f"  chain [{label}]: cosine EER "
+              f"{100 * eer(sc[tgt], sc[~tgt]):.2f} % over {tgt.sum()} "
+              f"target / {(~tgt).sum()} impostor trials")
+        final[tier] = final_llk(label, res)
+    for tier, res in fm_runs.items():
+        launches = res["launches"]
+        key = entry("em_stats_fused", tier)
+        print(f"  TrainWorld [{tier}]: launches {launches}")
+        check(launches[key] > 0, f"{key} launched by TrainWorld")
+        check(all(v == 0 for k, v in launches.items() if k != key),
+              f"only {key} launched by TrainWorld [{tier}]")
+        kernels[key]["launches"] = launches[key]
+        final[tier] = final_llk(tier, res)
+        # bf16 logits move occupancies by percents (the JAX suite's
+        # own fastMath EM budget is 5e-3 at toy size)
+        dl = abs(final[tier] - final[""])
+        print(f"  final UBM meanLLK {tier} {final[tier]:.7f} (|diff| to "
+              f"default {dl:.2e})")
+        check(dl <= 5e-2, f"{tier} and default final UBM meanLLK within "
+              "5e-2 nats/frame")
+    for tier in fm_runs:        # no tool passes fastMath to K2
+        kernels[entry("bw_stats_fused", tier)]["launches"] = 0
+    dl = abs(final[""] - final["fastStats"])
+    print(f"  final UBM meanLLK default {final['']:.7f}, fastStats "
+          f"{final['fastStats']:.7f} (|diff| {dl:.2e})")
+    ubms = [GmmDiag.load(os.path.join(workdir, t or "default",
+                                      "wld.gmm")) for t in chains]
+    print("  default vs fastStats UBM: max|diff| " + ", ".join(
+        f"{f} {float((getattr(ubms[0], f) - getattr(ubms[1], f)).abs().max()):.3e}"
+        for f in ("weights", "means", "cov_inv")))
+    check(dl <= 1e-2, "default and fastStats chains' final UBM meanLLK "
+          "within 1e-2 nats/frame")
     phase("cli", t0)
 
     # 7. timing at the slice's shapes, every tier; the timed calls' last
@@ -1022,8 +1623,18 @@ def main() -> int:
 
     # 8. the GMM-UBM system of configs 1 and 2 at full width
     t0 = time.perf_counter()
-    run_gmm_ubm(kernels, dev)
+    gu_dir, gu_lists, raw_eer = run_gmm_ubm(kernels, dev)
     phase("gmm-ubm", t0)
+
+    # 9. the i-vector back end of configs 3 and 5, on phase 6's chain
+    t0 = time.perf_counter()
+    run_backend(workdir, lists, kernels, dev)
+    phase("backend", t0)
+
+    # 10. the JFA system of config 4, on phase 8's features and models
+    t0 = time.perf_counter()
+    run_jfa(gu_dir, gu_lists, raw_eer, kernels, dev)
+    phase("jfa", t0)
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

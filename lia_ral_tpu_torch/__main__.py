@@ -2,32 +2,41 @@
 (port of lia_ral_tpu/__main__.py).
 
 The tool names are the reference binaries' (and the JAX package's
-``TOOLS``).  The port runs the GMM-UBM chain EnergyDetector → NormFeat →
-TrainWorld → TrainTarget → ComputeTest → ComputeNorm and the i-vector
-chain TrainWorld → TotalVariability → IvExtractor → IvTest; every other
-tool prints that it is not ported yet and exits 2.  Config key ``torchDevice`` (default
-``cuda``) names the device.
+``TOOLS``); tools that share a module (EigenVoice → jfa_tools, ...) get
+their mode key preset.  The port runs the GMM-UBM chain EnergyDetector →
+NormFeat → TrainWorld → TrainTarget → ComputeTest → ComputeNorm, the
+i-vector chain TrainWorld → TotalVariability → IvExtractor → IvNorm →
+PLDA → IvTest and the JFA chain ComputeJFAStats → EigenVoice →
+EigenChannel → EstimateDMatrix; every other tool prints that it is not
+ported yet and exits 2.  Config key ``torchDevice`` (default ``cuda``)
+names the device.
 """
 
 from __future__ import annotations
 
 import sys
 
-# tool name → module under tools/ (None: not ported yet)
-TOOLS: dict[str, str | None] = {
-    "NormFeat": "norm_feat",
-    "EnergyDetector": "energy_detector",
-    "TrainWorld": "train_world",
-    "TrainTarget": "train_target",
-    "ComputeTest": "compute_test",
-    "ComputeNorm": "compute_norm",
-    "TotalVariability": "total_variability",
-    "IvExtractor": "iv_extractor",
-    "IvTest": "iv_test",
+# tool name → (module under tools/, {preset config keys}), or None for a
+# tool that is not ported yet
+TOOLS: dict[str, tuple[str, dict[str, str]] | None] = {
+    "NormFeat": ("norm_feat", {}),
+    "EnergyDetector": ("energy_detector", {}),
+    "TrainWorld": ("train_world", {}),
+    "TrainTarget": ("train_target", {}),
+    "ComputeTest": ("compute_test", {}),
+    "ComputeNorm": ("compute_norm", {}),
+    "TotalVariability": ("total_variability", {}),
+    "IvExtractor": ("iv_extractor", {}),
+    "IvNorm": ("iv_norm", {}),
+    "IvTest": ("iv_test", {}),
+    "PLDA": ("plda_tool", {}),
+    "ComputeJFAStats": ("jfa_tools", {"jfaMode": "stats"}),
+    "ComputeTVStats": ("jfa_tools", {"jfaMode": "stats"}),
+    "EigenVoice": ("jfa_tools", {"jfaMode": "eigenVoice"}),
+    "EigenChannel": ("jfa_tools", {"jfaMode": "eigenChannel"}),
+    "EstimateDMatrix": ("jfa_tools", {"jfaMode": "estimateD"}),
     **{name: None for name in (
-        "IvNorm", "PLDA", "SpkAdapt", "ComputeJFAStats",
-        "ComputeTVStats", "EigenVoice", "EigenChannel", "EstimateDMatrix",
-        "AcousticSegmentation", "TurnDetection", "Segmentation",
+        "SpkAdapt", "AcousticSegmentation", "TurnDetection", "Segmentation",
         "ReSegmentation", "Scoring", "FusionScore", "ScoreWarp", "Hist",
         "ModelToSv", "NAPSV", "CovIntra", "ReadFeatFile", "ReadModel",
         "ExtractParams", "PolyExp", "GmmTokenizer", "BNGram", "LabelNGram",
@@ -43,9 +52,13 @@ def main(argv: list[str] | None = None) -> int:
         print("usage: python -m lia_ral_tpu_torch <Tool> [--config FILE] "
               "[--key value ...] [--torchDevice cuda|cpu]\n\n"
               "tools (reference binary names):")
-        for name, mod in sorted(TOOLS.items()):
-            print(f"  {name:<{width}}  -> "
-                  + (f"tools/{mod}" if mod else "not ported yet"))
+        for name, tool in sorted(TOOLS.items()):
+            if tool is None:
+                print(f"  {name:<{width}}  -> not ported yet")
+                continue
+            mode = next(iter(tool[1].values()), "")
+            print(f"  {name:<{width}}  -> tools/{tool[0]}"
+                  + (f" [{mode}]" if mode else ""))
         return 0
     name, rest = argv[0], argv[1:]
     if name not in TOOLS:
@@ -60,8 +73,13 @@ def main(argv: list[str] | None = None) -> int:
     import importlib
 
     from .config import Config
-    mod = importlib.import_module(f".tools.{TOOLS[name]}", __package__)
-    mod.main(Config.from_cli(rest))
+    mod_name, preset = TOOLS[name]
+    mod = importlib.import_module(f".tools.{mod_name}", __package__)
+    cfg = Config.from_cli(rest)
+    for k, v in preset.items():
+        if not cfg.exists(k):
+            cfg[k] = v
+    mod.main(cfg)
     return 0
 
 

@@ -1,9 +1,9 @@
 """Parameters of the JAX package (as numpy arrays) → port state, and back.
 
 The JAX package is never imported here: a caller turns a JAX GmmDiag,
-TvModel, TvAccums, EmStats or BwStats into numpy (``np.asarray`` on each
-field) and passes the arrays in, so both packages compute from identical
-values.
+TvModel, TvAccums, EmStats, BwStats, DevSet, PldaModel, JfaModel, JfaStats
+or SubspaceAccums into numpy (``np.asarray`` on each field) and passes the
+arrays in, so both packages compute from identical values.
 """
 
 from __future__ import annotations
@@ -13,6 +13,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from .backend.ivnorm import DevSet
+from .backend.plda import PldaModel
+from .fa.jfa import JfaModel, JfaStats, SubspaceAccums
 from .fa.stats import BwStats
 from .fa.tv import TvAccums, TvModel
 from .gmm.kernels import EmStats
@@ -57,10 +60,50 @@ def bw_stats_from_numpy(n, f, device=None) -> BwStats:
     return BwStats(_t(n, device), _t(f, device))
 
 
+def dev_set_from_numpy(vectors, spk_ids, n_speakers: int,
+                       device=None) -> DevSet:
+    return DevSet(_t(vectors, device),
+                  torch.as_tensor(np.array(spk_ids, np.int64), device=device),
+                  int(n_speakers))
+
+
+def plda_from_numpy(mean, f, g, sigma, device=None) -> PldaModel:
+    return PldaModel(_t(mean, device), _t(f, device), _t(g, device),
+                     _t(sigma, device))
+
+
+def jfa_from_numpy(v, u, d, ubm_means, ubm_inv_var, device=None) -> JfaModel:
+    return JfaModel(_t(v, device), _t(u, device), _t(d, device),
+                    _t(ubm_means, device), _t(ubm_inv_var, device))
+
+
+def jfa_stats_from_numpy(sess_n, sess_f, sess_spk, n_speakers: int,
+                         device=None) -> JfaStats:
+    """Session stats and the session→speaker index; the speaker stats are
+    aggregated here, as ``JfaStats.from_sessions`` does in both
+    packages."""
+    return JfaStats.from_sessions(bw_stats_from_numpy(sess_n, sess_f, device),
+                                  np.asarray(sess_spk), int(n_speakers))
+
+
+def subspace_accums_from_numpy(a, c, device=None) -> SubspaceAccums:
+    return SubspaceAccums(_t(a, device), _t(c, device))
+
+
+_STATE_TYPES = (GmmDiag, TvModel, TvAccums, EmStats, BwStats, PldaModel,
+                JfaModel, JfaStats, SubspaceAccums)
+
+
 def to_numpy(obj) -> dict[str, np.ndarray]:
-    """Fields of a GmmDiag / TvModel / TvAccums / EmStats / BwStats as
-    numpy arrays, keyed by the field names both packages share."""
-    if not isinstance(obj, (GmmDiag, TvModel, TvAccums, EmStats, BwStats)):
+    """Fields of a port state object (GmmDiag, TvModel, TvAccums, EmStats,
+    BwStats, PldaModel, JfaModel, JfaStats, SubspaceAccums) as numpy
+    arrays, keyed by the field names both packages share; a nested
+    BwStats (``JfaStats.spk`` / ``.sess``) becomes a dict of its own."""
+    if not isinstance(obj, _STATE_TYPES):
         raise TypeError(f"to_numpy: unsupported {type(obj).__name__}")
-    return {f.name: getattr(obj, f.name).detach().cpu().numpy()
-            for f in dataclasses.fields(obj)}
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        out[f.name] = (to_numpy(v) if isinstance(v, BwStats)
+                       else v.detach().cpu().numpy())
+    return out

@@ -15,8 +15,12 @@ one batched solve over the component axis; minDivergence (cpp:2056-2101)
 whitens T and folds the i-vector mean into the UBM means.
 
 Model layout: T is (R, K, D), the reference's (R, K·D) supervector rows
-kept component-major; on disk it is the reference's (R, K·D) .matx.  The
-ubmWeight / eigenDecomposition approximations are not ported yet.
+kept component-major; on disk it is the reference's (R, K·D) .matx.
+
+The two fast approximations of the reference, estimateWUbmWeight
+(cpp:2337: one shared weighted covariance scaled per utterance) and
+estimateWEigenDecomposition (cpp:2556: L⁻¹ diagonal in a fixed
+eigenbasis), and orthonormalizeT (cpp:1548) close the file.
 """
 
 from __future__ import annotations
@@ -335,3 +339,79 @@ def verify_em_llk(x: torch.Tensor, mask: torch.Tensor, stats: BwStats,
         total += float(torch.sum(llk * mask[i])
                        / torch.clamp(torch.sum(mask[i]), min=1.0))
     return total
+
+
+# -- fast approximations ------------------------------------------------------
+
+def norm_t_matrix(model: TvModel) -> torch.Tensor:
+    """T̄ = T·sqrt(Σ⁻¹) (reference normTMatrix, cpp:1600) — (R,K,D)."""
+    return model.t * torch.sqrt(model.ubm_inv_var)[None, :, :]
+
+
+def weighted_cov(model: TvModel, ubm_weights: torch.Tensor) -> torch.Tensor:
+    """W = Σ_c w_c·T̄_c T̄_cᵀ (reference getWeightedCov, cpp:2826), as one
+    (R,K·D)@(K·D,R) product."""
+    tn = norm_t_matrix(model)
+    tw = (tn * ubm_weights[None, :, None]).reshape(model.rank, -1)
+    return tw @ tn.reshape(model.rank, -1).T
+
+
+def _normalized_aux(stats: BwStats, model: TvModel) -> torch.Tensor:
+    """aux = T̄·(F̄·sqrt(Σ⁻¹)) per utterance — (S,R)."""
+    fnorm = stats.normalized(model.ubm_means, model.ubm_inv_var)
+    return fnorm.reshape(stats.n_utts, -1) @ norm_t_matrix(model).reshape(
+        model.rank, -1).T
+
+
+def estimate_w_ubm_weight(stats: BwStats, model: TvModel,
+                          w_mat: torch.Tensor, chunk: int = 64
+                          ) -> torch.Tensor:
+    """UBM-weight approximation (reference estimateWUbmWeight, cpp:2337):
+    L_s ≈ I + (Σ_c N_sc)·W with W the weighted covariance, one shared R×R
+    structure scaled per utterance; ``chunk`` utterances per batched
+    Cholesky.  A zero-occupancy utterance has L = I and aux = 0, so
+    w = 0."""
+    aux = _normalized_aux(stats, model)
+    n_sum = torch.sum(stats.n, dim=-1)                            # (S,)
+    eye = torch.eye(model.rank, dtype=aux.dtype, device=aux.device)
+    ws = []
+    for s0 in range(0, stats.n_utts, chunk):
+        l_mat = eye[None] + n_sum[s0:s0 + chunk, None, None] * w_mat[None]
+        chol = torch.linalg.cholesky(l_mat)
+        ws.append(torch.cholesky_solve(aux[s0:s0 + chunk, :, None],
+                                       chol)[..., 0])
+    return torch.cat(ws)
+
+
+def eigen_decompose_w(w_mat: torch.Tensor) -> torch.Tensor:
+    """Q = eigenvectors of the weighted covariance (reference
+    computeEigenProblem, cpp:2999-3104), as columns in ascending order of
+    eigenvalue.  Column signs are the eigensolver's."""
+    return torch.linalg.eigh(w_mat)[1]
+
+
+def approximate_tctc(model: TvModel, q: torch.Tensor) -> torch.Tensor:
+    """D(c,i) ≈ (Qᵀ T̄_c T̄_cᵀ Q)_ii (reference approximateTcTc, cpp:3106)
+    — (K, R); the same whatever the signs of Q's columns."""
+    r, k, d = model.t.shape
+    tq = q.T @ norm_t_matrix(model).reshape(r, k * d)          # (R,K·D)
+    return torch.sum(tq.reshape(r, k, d) ** 2, dim=-1).T       # (K,R)
+
+
+def estimate_w_eigen_decomposition(stats: BwStats, model: TvModel,
+                                   d_mat: torch.Tensor, q: torch.Tensor
+                                   ) -> torch.Tensor:
+    """Eigen-decomposition approximation (reference
+    estimateWEigenDecomposition, cpp:2556-2610): L⁻¹ ≈
+    Q·diag(1/(1+N·D))·Qᵀ, no per-utterance factorisation at all."""
+    aux = _normalized_aux(stats, model)                        # (S,R)
+    inv_l = 1.0 / (1.0 + stats.n @ d_mat)                      # (S,R)
+    return ((aux @ q) * inv_l) @ q.T
+
+
+def orthonormalize_t(model: TvModel) -> TvModel:
+    """Orthonormalise the rows of T (reference orthonormalizeT, cpp:1548)
+    by QR on the supervector layout.  The row signs are the QR routine's
+    (unlike ``fa.jfa.orthonormalize_v``, nothing fixes them)."""
+    q, _ = torch.linalg.qr(model.t_flat().T)                   # (K·D,R)
+    return model.replace(t=q.T.reshape(model.t.shape).contiguous())

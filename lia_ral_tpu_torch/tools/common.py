@@ -168,6 +168,33 @@ def mixture_path(name: str, cfg: Config, save: bool = False) -> str:
     return os.path.join(root, name + ext)
 
 
+def load_lfa_model(cfg: Config, world):
+    """The LFA channel model of the feature-domain tools (TrainTarget
+    LFA, NormFeat featFA/featLFA): U from ``eigenChannelMatrix``, D from
+    the relevance factor ``regulationFactor``; on the world's device."""
+    from ..fa.lfa import lfa_model
+    from ..io.matrix import read_matrix_file
+    u = read_matrix_file(os.path.join(
+        cfg.get_str("matrixFilesPath", "./"),
+        cfg.get_str("eigenChannelMatrix")
+        + cfg.get_str("loadMatrixFilesExtension", ".matx")))
+    k, d = world.means.shape
+    return lfa_model(u.reshape(u.shape[0], k, d), world,
+                     tau=cfg.get_float("regulationFactor", 16.0))
+
+
+def compensate_session(x, w, world, fa_model, gram):
+    """Feature-domain channel compensation of one session, x (T,D) with
+    frame weights w: its channel factor from its own stats (z = y = 0),
+    then x_t − Σ_g γ_g(t)·(U·x_h)_g.  ``gram``: ``channel_gram(fa_model)``."""
+    from ..fa.lfa import compensate_features, estimate_channel
+    from ..fa.stats import BwStats, accumulate_bw_stats
+    n, f = accumulate_bw_stats(x, w, world)
+    x_h = estimate_channel(BwStats(n=n[None], f=f[None]), fa_model,
+                           gram=gram)[0]
+    return compensate_features(x, world, fa_model, x_h)
+
+
 def setup_verbose(cfg: Config) -> bool:
     return cfg.get_bool("verbose", False)
 

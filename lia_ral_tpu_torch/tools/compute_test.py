@@ -8,11 +8,13 @@ Equivalent of reference ``LIA_SpkDet/ComputeTest`` (ComputeTestMain.cpp:
   top-K LLR scoring with worldDecime decimation, NIST output; with
   ``segmentLLR`` one LLR per segment, with ``windowLLR`` one per sliding
   window of frames;
+* jfa (cpp:376) / lfa (cpp:574): the test session's channel factor is
+  estimated on its stats, world and clients are shifted by U·x, then
+  top-K LLR;
 * byLabel (cpp:916): one score per label cluster of the test file;
 * histo (cpp:1031): per-frame LLR histogram → entropy or robust mean.
 
-``dotProduct`` and ``nap`` (supervectors) and ``jfa``/``lfa`` (channel
-compensation) are not ported yet.
+``dotProduct`` and ``nap`` (supervectors) are not ported yet.
 
 Plain-mode lines with the same client set and frame bucket score as one
 batch (``compute_test_llr_batch``); each result carries its NDX line
@@ -29,6 +31,10 @@ import torch
 
 from ..backend.unsupervised import windowed_llr
 from ..config import Config
+from ..fa.jfa import JfaModel
+from ..fa.lfa import (channel_gram, compensate_model, estimate_channel,
+                      lfa_model)
+from ..fa.stats import BwStats, accumulate_bw_stats
 from ..gmm.model import GmmDiag
 from ..gmm.scoring import (compute_test_llr, compute_test_llr_batch,
                            decime_groups, stack_gmms, top_k_llk)
@@ -36,12 +42,14 @@ from ..io.features import server_from_config
 from ..io.labels import (SegmentStore, frame_idx_to_time,
                          frame_mask_to_segments)
 from ..io.lists import read_ndx
+from ..io.matrix import read_matrix_file
 from ..io.nist import ScoreLine, read_nist_scores, write_nist_scores
 from ..utils.shapes import FRAME_BUCKET, bucket_len, next_pow2
 from .common import (label_path, load_features_and_mask, mixture_path,
                      not_ported, resolve_device, setup_verbose)
+from .total_variability import matrix_out_path
 
-_NOT_PORTED = {"dotProduct": 13, "nap": 13, "jfa": 10, "lfa": 10}
+_NOT_PORTED = {"dotProduct": 13, "nap": 13}
 
 
 def _pad_frames(x: np.ndarray, w: np.ndarray | None = None,
@@ -129,6 +137,8 @@ def main(cfg: Config) -> list[ScoreLine]:
     mode = cfg.get_str("computeTestMode", "plain")
     if mode in _NOT_PORTED:
         raise not_ported(f"computeTestMode={mode}", _NOT_PORTED[mode])
+    if mode in ("jfa", "lfa"):
+        return channel_comp_main(cfg, lfa=(mode == "lfa"))
     if mode == "byLabel":
         return by_label_main(cfg)
     if mode == "histo":
@@ -275,6 +285,61 @@ def _load_clients(model_names: list[str], cfg: Config, cache: dict,
         if mn not in cache:
             cache[mn] = GmmDiag.load(mixture_path(mn, cfg), device=device)
     return [cache[mn] for mn in model_names]
+
+
+def _load_jfa_model(cfg: Config, gmm: GmmDiag, lfa: bool) -> JfaModel:
+    """The channel-compensation model from the matrix files: U
+    (``eigenChannelMatrix``, default EC), and for LFA D from the relevance
+    factor, for JFA V (``eigenVoiceMatrix``) when the config names it."""
+    k, d = gmm.means.shape
+
+    def subspace(name: str) -> torch.Tensor:
+        mat = read_matrix_file(matrix_out_path(name, cfg))
+        return torch.as_tensor(mat.reshape(mat.shape[0], k, d),
+                               dtype=torch.float32, device=gmm.device)
+
+    u = subspace(cfg.get_str("eigenChannelMatrix", "EC"))
+    if lfa:
+        return lfa_model(u, gmm, tau=cfg.get_float("regulationFactor", 16.0))
+    v = (subspace(cfg.get_str("eigenVoiceMatrix"))
+         if cfg.exists("eigenVoiceMatrix")
+         else torch.zeros((1, k, d), device=gmm.device))
+    return JfaModel(v=v, u=u, d=torch.zeros((k, d), device=gmm.device),
+                    ubm_means=gmm.means.to(torch.float32),
+                    ubm_inv_var=gmm.cov_inv.to(torch.float32))
+
+
+def channel_comp_main(cfg: Config, lfa: bool) -> list[ScoreLine]:
+    """JFA/LFA channel-compensated GMM scoring (ComputeTestJFA cpp:376,
+    ComputeTestLFA cpp:574): estimate the test session's channel factor
+    (no speaker prior: y = z = 0), shift world and clients by U·x, then
+    plain top-K LLR.  The U Gram block is built once for the run."""
+    world, ndx, gender, threshold, top_k = _trial_context(cfg)
+    dev = world.device
+    model = _load_jfa_model(cfg, world, lfa)
+    gram = channel_gram(model)
+    results = []
+    cache: dict[str, GmmDiag] = {}
+    for test_name, model_names in ndx:
+        fs, mask = load_features_and_mask([test_name], cfg)
+        x_np, w_np, _ = _pad_frames(np.asarray(fs.data, np.float32),
+                                    w=np.asarray(mask, np.float32))
+        x = torch.from_numpy(x_np).to(dev)
+        w = torch.from_numpy(w_np).to(dev)
+        n, f = accumulate_bw_stats(x, w, world)
+        x_h = estimate_channel(BwStats(n=n[None], f=f[None]), model,
+                               gram=gram)[0]
+        clients, _ = _pad_clients(
+            [compensate_model(c, model, x_h)
+             for c in _load_clients(model_names, cfg, cache, dev)])
+        llr = compute_test_llr(
+            x, w, compensate_model(world, model, x_h), stack_gmms(clients),
+            top_k=min(top_k, world.n_components))
+        for mn, sc in zip(model_names, llr.cpu().numpy()):
+            results.append(ScoreLine(gender, mn, _decision(sc, threshold),
+                                     test_name, float(sc)))
+    write_nist_scores(cfg.get_str("outputFilename"), results)
+    return results
 
 
 def by_label_main(cfg: Config) -> list[ScoreLine]:

@@ -4,9 +4,10 @@ lia_ral_tpu/tools/norm_feat.py).
 Equivalent of reference ``LIA_SpkDet/NormFeat`` modes (NormFeat.cpp):
 ``norm`` (cpp:231 — CMVN: file / segment / window with global fallback),
 ``featWarp`` (cpp:661), ``featMap`` (cpp:583) and ``info`` (cpp:520 —
-print the stats).  Normalised features are written with the save
-format/extension keys.  ``featFA``/``featLFA`` (channel factors) and
-``featNAP`` are not ported yet.
+print the stats) and ``featFA``/``featLFA`` (cpp:793/856: each file's
+channel offset U·x, estimated on its own stats, removed from its
+frames).  Normalised features are written with the save
+format/extension keys.  ``featNAP`` is not ported yet.
 
 Files are read ``FILE_BATCH`` at a time; in the file, window and warp
 modes, files of one frame bucket go to the device as one zero-weight
@@ -22,18 +23,20 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..fa.lfa import channel_gram
 from ..frontend.normfeat import (cmvn_global_batch, cmvn_segmental,
                                  cmvn_window_batch, feature_mapping,
                                  feature_warping, feature_warping_batch)
 from ..gmm.model import GmmDiag
 from ..io.features import write_feature_file
 from ..utils.shapes import bucket_len
-from .common import (file_frame_mask, load_features_and_mask,
-                     load_files_batch, mixture_path, not_ported,
+from .common import (compensate_session, file_frame_mask,
+                     load_features_and_mask, load_files_batch,
+                     load_lfa_model, mixture_path, not_ported,
                      resolve_device, resolve_list, setup_verbose)
 
 FILE_BATCH = 128                 # files read (and batched) at a time
-_NOT_PORTED = {"featFA": 10, "featLFA": 10, "featNAP": 13}
+_NOT_PORTED = {"featNAP": 13}
 
 
 def _out_path(name: str, cfg: Config) -> str:
@@ -110,6 +113,12 @@ def main(cfg: Config) -> dict[str, np.ndarray]:
                                              cfg), device=dev),
                    GmmDiag.load(mixture_path(
                        cfg.get_str("inputWorldFilename"), cfg), device=dev))
+    elif mode in ("featFA", "featLFA"):
+        # (world, channel model, its U Gram block), built once per run
+        world = GmmDiag.load(mixture_path(cfg.get_str("inputWorldFilename"),
+                                          cfg), device=dev)
+        fa_model = load_lfa_model(cfg, world)
+        mapping = (world, fa_model, channel_gram(fa_model))
     out: dict[str, np.ndarray] = {}
     # FILE_BATCH files at a time: read, normalise, write and free, so a
     # corpus-size run keeps one chunk's inputs in memory
@@ -169,8 +178,8 @@ def _process_chunk(names, cfg, mode, seg_mode, window, mapping, dev, verbose,
         if batched is not None and batched[idx] is not None:
             data = batched[idx]
         else:
-            x = torch.from_numpy(xn).to(dev)
-            w = torch.from_numpy(mask).to(dev)
+            x = torch.tensor(xn, device=dev)    # a copy: xn is read-only
+            w = torch.tensor(mask, device=dev)
             if mode == "norm" and seg_mode == "segment":
                 # one segment id per contiguous selected run
                 runs = np.cumsum(np.abs(np.diff(np.r_[0, mask > 0])))
@@ -183,6 +192,10 @@ def _process_chunk(names, cfg, mode, seg_mode, window, mapping, dev, verbose,
                 # onto a channel-independent root model (featMap,
                 # NormFeat.cpp:583)
                 y = feature_mapping(x, *mapping)
+            elif mode in ("featFA", "featLFA"):
+                # feature-domain channel compensation (reference
+                # normFeatFA/normFeatLFA, NormFeat.cpp:793/856)
+                y = compensate_session(x, w, *mapping)
             else:
                 raise ValueError(f"unknown NormFeat mode {mode}")
             data = y.cpu().numpy()

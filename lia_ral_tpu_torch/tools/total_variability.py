@@ -4,9 +4,9 @@ lia_ral_tpu/tools/total_variability.py).
 Equivalent of reference ``LIA_SpkDet/TotalVariability``
 (TotalVariability.cpp:71-248): accumulate (or load) Baum-Welch stats →
 random T init → EM loop with optional minimum divergence → save T and
-the mean estimate.  On a CUDA device the stats run in kernel K2
-(``fastStats`` takes its bf16 tier).  ``approximationMode`` (the
-ubmWeight / eigenDecomposition matrices) is not ported yet.
+the mean estimate (and, with ``approximationMode``, the ubmWeight or
+eigenDecomposition matrices IvExtractor's fast modes read).  On a CUDA
+device the stats run in kernel K2 (``fastStats`` takes its bf16 tier).
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ import torch
 
 from ..config import Config
 from ..fa.stats import BwStats, bw_stats_bucketed, load_stats, save_stats
-from ..fa.tv import TvModel, init_t, tv_em_iteration, verify_em_llk
+from ..fa.tv import (TvModel, approximate_tctc, eigen_decompose_w, init_t,
+                     tv_em_iteration, verify_em_llk, weighted_cov)
 from ..gmm.model import GmmDiag
 from ..io.lists import read_ndx
 from ..io.matrix import write_matrix_file
@@ -100,10 +101,6 @@ def verify_llk(cfg: Config, names: list[str], stats: BwStats,
 
 
 def main(cfg: Config) -> TvModel:
-    if cfg.exists("approximationMode"):
-        raise NotImplementedError(
-            "approximationMode (ubmWeight / eigenDecomposition matrices) is "
-            "not ported to lia_ral_tpu_torch yet (ROADMAP queue 1, item 4)")
     verbose = setup_verbose(cfg)
     dev = resolve_device(cfg)
     gmm = GmmDiag.load(mixture_path(cfg.get_str("inputWorldFilename"), cfg),
@@ -137,6 +134,21 @@ def main(cfg: Config) -> TvModel:
         write_matrix_file(matrix_out_path(
             cfg.get_str("meanEstimate", "meanEstimate"), cfg),
             model.ubm_means.cpu().numpy().astype(np.float64).reshape(1, -1))
+    if cfg.exists("approximationMode"):
+        mode = cfg.get_str("approximationMode")
+        base = cfg.get_str("totalVariabilityMatrix")
+        w_mat = weighted_cov(model, gmm.weights)
+        if mode == "ubmWeight":
+            mats = {"_weightedCov": w_mat}
+        elif mode == "eigenDecomposition":
+            q = eigen_decompose_w(w_mat)
+            mats = {"_EigDec_D": approximate_tctc(model, q), "_EigDec_Q": q}
+        else:
+            print(f"approximationMode [{mode}] unknown")
+            mats = {}
+        for suffix, mat in mats.items():
+            write_matrix_file(matrix_out_path(base + suffix, cfg),
+                              mat.cpu().numpy().astype(np.float64))
     return model
 
 

@@ -61,6 +61,42 @@ def assert_em_stats_close(got, want) -> None:
                                rtol=COUNT_RTOL)
 
 
+def assert_close_scaled(got, want, rtol: float, err_msg: str = "") -> None:
+    """rtol with atol = rtol·max|want|: the budget of an array whose small
+    entries carry the absolute error of its large ones (a product, a
+    solve)."""
+    got, want = np_of(got), np_of(want)
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=rtol * float(np.max(np.abs(want))),
+                               err_msg=err_msg)
+
+
+# Invariants of quantities that two LAPACKs give in different bases: an
+# eigenvector's sign (and the basis of a repeated eigenvalue), a QR
+# factor's column signs.
+
+def gram(x) -> np.ndarray:
+    """X·Xᵀ of row vectors: equal for X and X·O with any orthogonal O
+    (vectors normalised through M and through O·M)."""
+    x = np_of(x).astype(np.float64)
+    return x @ x.T
+
+
+def metric(m) -> np.ndarray:
+    """MᵀM of a transform applied as x @ Mᵀ: equal for M and O·M (a
+    whitening matrix M = Λ^-½·Vᵀ has MᵀM = Σ⁻¹ whatever V's signs)."""
+    m = np_of(m).astype(np.float64)
+    return m.T @ m
+
+
+def projector(rows) -> np.ndarray:
+    """Orthogonal projector onto the row space of P: Pᵀ(PPᵀ)⁻¹P, equal
+    for any two bases of the same space, whatever their signs, order or
+    scaling."""
+    p = np_of(rows).astype(np.float64)
+    return p.T @ np.linalg.solve(p @ p.T, p)
+
+
 @pytest.fixture
 def cuda_device():
     """The first CUDA device; skips the test where there is none."""

@@ -366,3 +366,49 @@ def test_gmm_ubm_path_runs_k1_on_cuda(cuda_device):
                            world.to(cuda_device), clients.to(cuda_device))
     _close(llr.cpu(), compute_test_llr(x[:2000], w[:2000], world, clients),
            1e-4)
+
+
+def test_jfa_session_stats_run_k2_on_cuda(cuda_device, tmp_path):
+    """``accumulate_session_stats`` (ComputeJFAStats, and TrainTarget JFA
+    on the target list) on a CUDA GMM launches K2 once per length bucket
+    and batch, in the default tier and with fastStats, and matches its
+    run on the CPU (the plain versions) within K2's budgets: n 1e-4, F
+    1e-3 of scale (2e-3 with fastStats)."""
+    from lia_ral_tpu_torch.config import Config
+    from lia_ral_tpu_torch.io.features import write_feature_file
+    from lia_ral_tpu_torch.io.lists import write_xlist
+    from lia_ral_tpu_torch.tools.jfa_tools import accumulate_session_stats
+
+    rng = np.random.default_rng(21)
+    d = str(tmp_path)
+    # 5 sessions in the 2048-frame bucket, 2 in the 4096-frame one
+    lens = [700, 2048, 1500, 3000, 900, 2049, 100]
+    names = [f"s{i}" for i in range(len(lens))]
+    for name, t in zip(names, lens):
+        write_feature_file(f"{d}/{name}.prm",
+                           rng.standard_normal((t, 20), dtype=np.float32),
+                           fmt="SPRO4")
+    write_xlist(f"{d}/s.ndx", [["a"] + names[:3], ["b"] + names[3:5],
+                               ["a"] + names[5:]])
+    world = _gmm(6, 128, 20, "cpu")
+    for fast, key, rtol in (("false", "bw_stats_fused", 1e-3),
+                            ("true", "bw_stats_fused[fastStats]", 2e-3)):
+        cfg = Config({"featureFilesPath": d + "/", "labelFilesPath": d + "/",
+                      "loadFeatureFileFormat": "SPRO4",
+                      "addDefaultLabel": "true", "defaultLabel": "speech",
+                      "ndxFilename": f"{d}/s.ndx", "statsBatchSize": "4",
+                      "fastStats": fast})
+        before = ck.launch_counts[key]
+        got, spk, sess = accumulate_session_stats(cfg, world.to(cuda_device))
+        # ceil(5 / 4) batches of 2048 frames + 1 batch of 4096
+        assert ck.launch_counts[key] == before + 3
+        assert got.sess.n.device.type == "cuda"
+        assert spk == ["a", "b"] and sess == names
+        assert got.sess_spk.tolist() == [0, 0, 0, 1, 1, 0, 0]
+        want, _, _ = accumulate_session_stats(cfg, world)
+        assert ck.launch_counts[key] == before + 3      # CPU: plain version
+        for g, w_ in ((got.sess, want.sess), (got.spk, want.spk)):
+            _close(g.n, w_.n, 1e-4)
+            _close(g.f, w_.f, rtol)
+        # every frame has weight 1: the occupancies sum to the lengths
+        np.testing.assert_allclose(np_of(got.sess.n).sum(1), lens, rtol=1e-4)

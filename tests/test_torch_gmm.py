@@ -435,6 +435,12 @@ def test_port_imports_no_jax():
         "import lia_ral_tpu_torch.tools.compute_norm\n"
         "import lia_ral_tpu_torch.tools.energy_detector\n"
         "import lia_ral_tpu_torch.tools.norm_feat\n"
+        "import lia_ral_tpu_torch.backend.ivnorm\n"
+        "import lia_ral_tpu_torch.backend.plda\n"
+        "import lia_ral_tpu_torch.fa.jfa, lia_ral_tpu_torch.fa.lfa\n"
+        "import lia_ral_tpu_torch.fa.topgauss\n"
+        "import lia_ral_tpu_torch.tools.plda_tool\n"
+        "import lia_ral_tpu_torch.tools.jfa_tools\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
@@ -463,3 +469,38 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                               timeout=120)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+@pytest.mark.parametrize("lens,bucket,batch", [
+    ([2000] * 250, 2048, 64), ([700, 2048, 1500, 3000, 900, 2049, 100], 2048,
+                               4), ([5, 9, 17, 33], 8, 1), ([12], 2048, 64)])
+def test_chip_smoke_launch_rule_is_the_bucketing_rule(monkeypatch, lens,
+                                                      bucket, batch):
+    """The K2 launch count chip_smoke.py expects of a stats tool
+    (``k2_batches``) is the number of ``bw_stats_batch`` calls that
+    ``bw_stats_bucketed`` makes for files of those lengths."""
+    import importlib.util
+
+    from lia_ral_tpu_torch.fa import stats as tstats
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    calls = []
+
+    def counted(x, mask, gmm, **kwargs):
+        calls.append(tuple(x.shape))
+        s, k = x.shape[0], gmm.n_components
+        return tstats.BwStats(n=torch.zeros((s, k)),
+                              f=torch.zeros((s, k, x.shape[2])))
+
+    monkeypatch.setattr(tstats, "bw_stats_batch", counted)
+    _, tg = both_gmms(np.random.default_rng(0), 4, 3)
+    entries = [(np.zeros((n, 3), np.float32), np.ones(n, np.float32))
+               for n in lens]
+    out = tstats.bw_stats_bucketed(entries, tg, bucket=bucket,
+                                   batch_size=batch)
+    assert out.n.shape == (len(lens), 4)
+    assert len(calls) == smoke.k2_batches(lens, bucket, batch)
+    assert all(t % bucket == 0 for _, t, _ in calls)

@@ -1,5 +1,7 @@
-"""The port's CLI chain TrainWorld → TotalVariability → IvExtractor →
-IvTest (cosine) against the JAX package's, plus the tools' plumbing.
+"""The port's CLI chains against the JAX package's, plus the tools'
+plumbing: TrainWorld → TotalVariability → IvExtractor → IvTest (cosine);
+the i-vector back end on top of it (approximation modes, IvNorm, PLDA,
+every IvTest scoring); the GMM-UBM chain; the JFA/LFA chain.
 
 Both packages' ``tools.*.main`` run in their own temp directory on the
 same feature and label files (a tests/test_tools_iv.py-sized corpus:
@@ -107,6 +109,13 @@ def corpus(tmp_path_factory):
     write_xlist(os.path.join(d, "all.ndx"),
                 [[n] for n in dev + [e for _, e in enroll] + tests])
     write_xlist(os.path.join(d, "targets.ndx"), [[m, f] for m, f in enroll])
+    # the back-end and JFA chains' lists: the dev sessions by speaker, and
+    # models that enrol two sessions
+    write_xlist(os.path.join(d, "dev.ndx"),
+                [[f"spk{s}"] + [f"dev_s{s}_{j}" for j in range(SESS)]
+                 for s in range(N_SPK)])
+    write_xlist(os.path.join(d, "targets2.ndx"),
+                [[m, f, f"dev_s{s}_0"] for s, (m, f) in enumerate(enroll)])
     write_xlist(os.path.join(d, "trials.ndx"),
                 [[t] + [m for m, _ in enroll] for t in tests])
     w, m, ci = random_gmm_np(rng, K, DIM)
@@ -258,6 +267,232 @@ def test_tv_compute_llk_matches_jax(corpus, tmp_path, monkeypatch, capsys):
     np.testing.assert_allclose(totals["torch"], totals["jax"], rtol=1e-5)
 
 
+# -- the i-vector back end (configs 3 and 5) ------------------------------------
+#
+# On the chain above (default tier): TotalVariability with each
+# approximationMode → IvExtractor exact, ubmWeight, eigenDecomposition →
+# IvNorm (EFR, 2 iterations, + LDA) → PLDA (warm-started from matrix files
+# both packages read: ``pldaLoadInitMatrices``, since the random streams
+# differ) → IvTest in every scoring.  36 dev vectors of rank 4 (N = 9·R).
+#
+# Tolerances: scores 1e-3 of the score list's scale (the chain's
+# i-vector budget; measured 3e-5 after whitening, an f32 inverse or five
+# PLDA EM iterations); PLDA trained inside IvTest from each package's own random
+# init: compared by EER and by each segment's best model only.  Files that hold
+# eigenvectors are compared through invariants (_torch_parity.py), never
+# element by element.
+
+BACKEND_TOL = 1e-3
+IVTEST_MODES = {
+    "cos_wccn": dict(scoring="cosine", ivNorm="true", ivNormIterationNb=2,
+                     wccn="true", wccnMatrix="wccn"),
+    "cos_wccn_loaded": dict(scoring="cosine", ivNorm="true",
+                            ivNormIterationNb=2, ivNormLoadParam="true",
+                            wccn="true", loadWccnMatrix="true",
+                            wccnMatrix="wccn"),
+    "maha": dict(scoring="mahalanobis", ivNorm="true",
+                 mahalanobisMatrix="maha"),
+    "maha_loaded": dict(scoring="mahalanobis", ivNorm="true",
+                        ivNormLoadParam="true", loadMahalanobisMatrix="true",
+                        mahalanobisMatrix="maha"),
+    "2cov": dict(scoring="2cov", ivNorm="true"),
+    "2cov_loaded": dict(scoring="2cov", ivNorm="true", ivNormLoadParam="true",
+                        load2covMatrix="true"),
+    "lda": dict(scoring="cosine", ivNorm="true", ldaRank=3,
+                ldaMatrix="ldaFromIvTest"),
+    "loadparam_lda_binary": dict(scoring="cosine", ivNorm="true",
+                                 ivNormIterationNb=2, ivNormLoadParam="true",
+                                 LDA="true", ldaMatrix="ldaFromIvNorm",
+                                 outputScoreFormat="binary"),
+    "plda": dict(scoring="plda", vectors="normed", targets="targets2.ndx",
+                 pldaModelFilename="plda.npz"),
+    "pldaMean": dict(scoring="pldaMean", vectors="normed",
+                     targets="targets2.ndx", pldaModelFilename="plda.npz"),
+    "plda_trained": dict(scoring="plda", ivNorm="true", randomSeed=3,
+                         pldaEigenVoiceNumber=3, pldaNbIt=10),
+}
+
+
+def _run_backend_chain(pkg, d, t0, plda_init, work, monkeypatch):
+    """The back end through one package's tools, on its own run of the
+    default-tier chain in ``work``.  Returns {mode: IvTest results}."""
+    _run_chain(pkg, d, t0, work, False, monkeypatch)
+    if pkg == "jax":
+        from lia_ral_tpu.io.matrix import write_matrix_file
+        from lia_ral_tpu.tools import iv_norm, plda_tool
+        cls, tv, ivx, ivt = (JConfig, j_total_variability, j_iv_extractor,
+                             j_iv_test)
+    else:
+        from lia_ral_tpu_torch.io.matrix import write_matrix_file
+        from lia_ral_tpu_torch.tools import iv_norm, plda_tool
+        cls, tv, ivx, ivt = (TConfig, t_total_variability, t_iv_extractor,
+                             t_iv_test)
+    normed = os.path.join(work, "normed")
+    for sub in ("normed", "uw", "ed"):
+        os.makedirs(os.path.join(work, sub))
+
+    def cfg(**extra):
+        return _config(cls, d, work, False, **extra)
+
+    for mode in ("eigenDecomposition", "ubmWeight"):
+        tv.main(cfg(ndxFilename=os.path.join(d, "tv.ndx"),
+                    totalVariabilityNumber=RANK, nbIt=2,
+                    approximationMode=mode))
+    for mode, sub in (("ubmWeight", "uw"), ("eigenDecomposition", "ed")):
+        ivx.main(cfg(ndxFilename=os.path.join(d, "all.ndx"),
+                     ivExtractionMode=mode,
+                     saveVectorFilesPath=os.path.join(work, sub) + "/",
+                     ivectorsOutput=os.path.join(work, sub + ".npz")))
+    dev_ndx = os.path.join(d, "dev.ndx")
+    iv_norm.main(cfg(backgroundNdxFilename=dev_ndx, ivNormIterationNb=2,
+                     LDA="true", ldaRank=3, ldaMatrix="ldaFromIvNorm",
+                     inputVectorFilename=os.path.join(d, "all.ndx"),
+                     saveVectorFilesPath=normed + "/"))
+    for name, arr in plda_init.items():
+        write_matrix_file(os.path.join(work, name + "Init.matx"), arr)
+    plda_tool.main(cfg(
+        backgroundNdxFilename=dev_ndx, loadVectorFilesPath=normed + "/",
+        pldaEigenVoiceNumber=3, pldaEigenChannelNumber=1, pldaNbIt=5,
+        pldaLoadInitMatrices="true", pldaMeanVecInit="meanInit",
+        pldaEigenVoiceMatrixInit="FInit", pldaEigenChannelMatrixInit="GInit",
+        pldaSigmaMatrixInit="SigmaInit",
+        pldaModelFilename=os.path.join(work, "plda.npz")))
+    out = {}
+    for name, extra in IVTEST_MODES.items():
+        extra = dict(extra)
+        vec_dir = os.path.join(work, extra.pop("vectors", ""))
+        if "pldaModelFilename" in extra:
+            extra["pldaModelFilename"] = os.path.join(work, "plda.npz")
+        out[name] = ivt.main(cfg(
+            backgroundNdxFilename=dev_ndx,
+            loadVectorFilesPath=vec_dir.rstrip("/") + "/",
+            targetIdList=os.path.join(d, extra.pop("targets", "targets.ndx")),
+            ndxFilename=os.path.join(d, "trials.ndx"),
+            outputFilename=os.path.join(work, name + ".nist"), **extra))
+    return out
+
+
+def _scores(lines):
+    return np.array([r.score for r in lines])
+
+
+def _eer_of(lines):
+    from lia_ral_tpu_torch.backend.eval import eer
+    sc = _scores(lines)
+    tgt = np.array([r.model[len("model"):] == r.seg[len("test_s"):]
+                    for r in lines])
+    return eer(sc[tgt], sc[~tgt])
+
+
+def test_backend_chain_matches_jax(corpus, tmp_path, monkeypatch):
+    from _torch_parity import assert_close_scaled, gram, metric, projector
+
+    d, t0 = corpus
+    rng = np.random.default_rng(5)
+    plda_init = {"mean": np.zeros((RANK, 1)),
+                 "F": rng.standard_normal((RANK, 3)) * 0.1,
+                 "G": rng.standard_normal((RANK, 1)) * 0.1,
+                 "Sigma": np.eye(RANK) * 0.05}
+    res = {pkg: _run_backend_chain(pkg, d, t0, plda_init,
+                                   str(tmp_path / pkg), monkeypatch)
+           for pkg in ("jax", "torch")}
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
+
+    def both(name):
+        return (read_matrix_file(os.path.join(tdir, name)),
+                read_matrix_file(os.path.join(jdir, name)))
+
+    # TotalVariability's approximation files: W and D element-wise, Q
+    # through Q·diag·Qᵀ-free invariants (QᵀQ = I, |QtᵀQj| = I)
+    for name in ("TV_weightedCov.matx", "TV_EigDec_D.matx"):
+        assert_close_scaled(*both(name), 2e-3, err_msg=name)
+    qt, qj = both("TV_EigDec_Q.matx")
+    np.testing.assert_allclose(qt.T @ qt, np.eye(RANK), atol=1e-5)
+    np.testing.assert_allclose(np.abs(qt.T @ qj), np.eye(RANK), atol=1e-2)
+    # the approximate i-vectors, against JAX and (a sanity bound only)
+    # against the exact ones of the same package
+    exact = np.load(os.path.join(tdir, "iv.npz"), allow_pickle=True)["w"]
+    for sub in ("uw", "ed"):
+        wt = np.load(os.path.join(tdir, sub + ".npz"), allow_pickle=True)["w"]
+        wj = np.load(os.path.join(jdir, sub + ".npz"), allow_pickle=True)["w"]
+        assert wt.shape == exact.shape
+        _close(wt, wj, 1e-3)
+        cos = np.sum(wt * exact, 1) / (np.linalg.norm(wt, axis=1)
+                                       * np.linalg.norm(exact, axis=1))
+        print(f"{sub}: mean cosine to the exact i-vectors {cos.mean():.4f}")
+        assert cos.mean() > 0.8
+    # IvNorm: the normalised vectors agree up to an orthogonal map, have
+    # unit norm, and the saved transforms agree as MᵀM / projector
+    names = [f"dev_s{s}_{j}" for s in range(N_SPK) for j in range(SESS)]
+    vt, vj = (np.stack([read_matrix_file(os.path.join(w, "normed", n + ".y"))
+                        .ravel() for n in names]) for w in (tdir, jdir))
+    np.testing.assert_allclose(np.linalg.norm(vt, axis=1), 1.0, atol=1e-5)
+    np.testing.assert_allclose(gram(vt), gram(vj), rtol=0, atol=BACKEND_TOL)
+    assert_close_scaled(*both("EFR_ivNormEfrMean_it0.matx"), 1e-3)
+    mt, mj = both("EFR_ivNormEfrMatrix_it0.matx")
+    assert_close_scaled(metric(mt), metric(mj), BACKEND_TOL)
+    assert both("EFR_ivNormEfrMatrix_it1.matx")[0].shape == (RANK, RANK)
+    for name in ("ldaFromIvNorm.matx", "ldaFromIvTest.matx"):
+        pt, pj = both(name)
+        assert pt.shape == (3, RANK)
+        np.testing.assert_allclose(projector(pt), projector(pj), rtol=0,
+                                   atol=1e-2)
+    # matrices IvTest wrote while estimating (unique ones element-wise)
+    for name in ("wccn.matx", "maha.matx", "2Cov_W.matx", "2Cov_B.matx"):
+        assert_close_scaled(*both(name), 5e-3, err_msg=name)
+    # PLDA's model files (from the carried init): F·Fᵀ + G·Gᵀ + Σ loosely
+    ft, fj = both("pldaEigenVoiceMatrix.matx")
+    gt, gj = both("pldaEigenChannelMatrix.matx")
+    st, sj = both("pldaSigmaMatrix.matx")
+    assert ft.shape == (RANK, 3) and gt.shape == (RANK, 1)
+    assert_close_scaled(ft @ ft.T + gt @ gt.T + st, fj @ fj.T + gj @ gj.T + sj,
+                        1e-2)
+    assert both("pldaMeanVec.matx")[0].shape == (RANK, 1)
+    assert both("pldaMinDivMean.matx")[0].shape == (RANK, 1)
+
+    for name in IVTEST_MODES:
+        got, want = res["torch"][name], res["jax"][name]
+        assert len(got) == len(want) == N_SPK * N_SPK, name
+        # the same lines in the same order
+        assert [(a.model, a.seg) for a in got] == \
+            [(b.model, b.seg) for b in want], name
+        sg, sw = _scores(got), _scores(want)
+        assert np.isfinite(sg).all(), name
+        if name == "plda_trained":
+            # each package drew its own init and EM stops at its own
+            # point: the EER agrees within 5 points, and every test
+            # segment's best model is the same in both packages
+            assert abs(_eer_of(got) - _eer_of(want)) <= 0.05, name
+            best = [np.argmax(v.reshape(N_SPK, N_SPK), axis=1)
+                    for v in (sg, sw)]
+            np.testing.assert_array_equal(best[0], best[1], err_msg=name)
+            continue
+        print(name, end=": ")
+        _close(sg, sw, BACKEND_TOL)
+        if name != "loadparam_lda_binary":
+            ft_ = read_nist_scores(os.path.join(tdir, name + ".nist"))
+            # the NIST file keeps 6 significant digits
+            np.testing.assert_allclose(_scores(ft_), sg, rtol=1e-5,
+                                       atol=1e-6)
+    # a loaded matrix scores as the estimated one did (the files hold the
+    # f32 values exactly)
+    for est, loaded in (("cos_wccn", "cos_wccn_loaded"),
+                        ("maha", "maha_loaded")):
+        np.testing.assert_allclose(_scores(res["torch"][loaded]),
+                                   _scores(res["torch"][est]), rtol=1e-5,
+                                   atol=1e-5)
+    # binary output: the (M, S) matrix holds the returned scores
+    mat = read_matrix_file(os.path.join(tdir,
+                                        "loadparam_lda_binary.nist.matx"))
+    assert mat.shape == (N_SPK, N_SPK)
+    np.testing.assert_allclose(
+        mat.T.ravel(), _scores(res["torch"]["loadparam_lda_binary"]),
+        rtol=1e-6)
+    # speakers separate in every mode (12 target trials of 144)
+    for name in IVTEST_MODES:
+        assert _eer_of(res["torch"][name]) < 0.35, name
+
+
 # -- tools plumbing -----------------------------------------------------------
 
 def test_resolve_device_never_falls_back():
@@ -313,28 +548,47 @@ def test_stats_fn_and_lists_match_jax(corpus):
 ], ids=["tv_approximation", "iv_eigen", "iv_test_plda", "iv_test_ivnorm",
         "iv_test_wccn"])
 def test_unported_modes_raise(extra):
+    """No mode of TotalVariability, IvExtractor and IvTest is left
+    unported: given its mode key and nothing else, each tool gets as far
+    as its first mandatory key (a ConfigError, which no not-ported error
+    precedes); an unknown mode is a ValueError."""
+    from lia_ral_tpu_torch.config import ConfigError
+
     tool = {"approximationMode": t_total_variability,
             "ivExtractionMode": t_iv_extractor}.get(next(iter(extra)),
                                                      t_iv_test)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    with pytest.raises(ConfigError, match="missing config parameter"):
         tool.main(TConfig(dict(extra, torchDevice="cpu")))
+    with pytest.raises(ValueError, match="unknown ivExtractionMode"):
+        t_iv_extractor.main(TConfig({"ivExtractionMode": "fast",
+                                     "torchDevice": "cpu"}))
 
 
 def test_main_dispatch(tmp_path, capsys):
     assert tmain.main([]) == 0
     assert "TrainWorld" in capsys.readouterr().out
-    assert tmain.main(["PLDA"]) == 2
+    assert tmain.main(["SpkAdapt"]) == 2
     assert "not ported" in capsys.readouterr().err
     assert tmain.main(["NoSuchTool"]) == 2
     import importlib
+    from lia_ral_tpu import __main__ as jmain
     for name, mod in (("EnergyDetector", "energy_detector"),
                       ("NormFeat", "norm_feat"),
                       ("TrainTarget", "train_target"),
                       ("ComputeTest", "compute_test"),
-                      ("ComputeNorm", "compute_norm")):
-        assert tmain.TOOLS[name] == mod
+                      ("ComputeNorm", "compute_norm"),
+                      ("IvNorm", "iv_norm"), ("PLDA", "plda_tool"),
+                      ("ComputeJFAStats", "jfa_tools"),
+                      ("ComputeTVStats", "jfa_tools"),
+                      ("EigenVoice", "jfa_tools"),
+                      ("EigenChannel", "jfa_tools"),
+                      ("EstimateDMatrix", "jfa_tools")):
+        # the module and the preset mode key of the JAX package's table
+        assert tmain.TOOLS[name] == jmain.TOOLS[name]
+        assert tmain.TOOLS[name][0] == mod
         assert callable(importlib.import_module(
             f"lia_ral_tpu_torch.tools.{mod}").main)
+    assert set(tmain.TOOLS) == set(jmain.TOOLS)
     # a ported tool through the CLI entry, with binary score output
     work = str(tmp_path)
     from lia_ral_tpu_torch.io.matrix import write_matrix_file
@@ -824,11 +1078,286 @@ def test_train_target_keys_match_jax(gu_corpus, tmp_path, capsys):
     ("norm_feat", {"mode": "featNAP"}, 13),
 ], ids=lambda v: v if isinstance(v, str) else None)
 def test_gmm_ubm_unported_modes_raise(tool, extra, item):
+    """The supervector modes (item 13) raise naming their ROADMAP item;
+    the channel-compensation modes (item 10) are ported: given the mode
+    key alone, the tool gets as far as its first mandatory key."""
     import importlib
+    from lia_ral_tpu_torch.config import ConfigError
+
     mod = importlib.import_module(f"lia_ral_tpu_torch.tools.{tool}")
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP queue 1, item {item}\)"):
-        mod.main(TConfig(dict(extra, torchDevice="cpu")))
+    cfg = TConfig(dict(extra, torchDevice="cpu"))
+    if item == 13:
+        with pytest.raises(NotImplementedError,
+                           match=rf"ROADMAP queue 1, item {item}\)"):
+            mod.main(cfg)
+    else:
+        with pytest.raises(ConfigError, match="missing config parameter"):
+            mod.main(cfg)
+
+
+# -- the JFA / LFA chain (config 4) ---------------------------------------------
+#
+# On the i-vector corpus (K=16, D=8; 12 speakers × 3 dev sessions):
+# TrainWorld → ComputeJFAStats → EigenVoice (rank 3) → EigenChannel (rank
+# 2, loading V) → EstimateDMatrix, each of the three with ``loadAccs`` and
+# 2 iterations → TrainTarget channelCompensation=JFA (models of two
+# sessions, with the y/x/z and supervector files) → ComputeTest jfa; then
+# the LFA variants TrainTarget LFA, ComputeTest lfa and NormFeat featLFA,
+# which in both packages read one U (the JAX chain's EC file).  The random
+# streams differ, so ``JfaModel.init`` is patched on both sides to return
+# the same V and U.
+#
+# Tolerances: session stats N_TOL / SUM_TOL scaled to the array; V, U, D
+# and everything enrolled from them 2e-3 of scale (fa/jfa's training
+# budget); scores |Δ| ≤ 1e-3 (LLRs of O(0.1-1)); compensated features
+# atol 1e-4.
+
+JFA_TOL, JFA_SCORE_ATOL = 2e-3, 1e-3
+JFA_RV, JFA_RU = 3, 2
+
+
+def _run_jfa_chain(pkg, d, v0, u0, work, monkeypatch, lfa_u=None):
+    """The chain through one package's tools in ``work``; ``lfa_u``: the
+    U file the LFA steps read (default: this run's own EC).  Returns the
+    ComputeTest results by mode."""
+    from lia_ral_tpu_torch.io.matrix import write_matrix_file
+    os.makedirs(os.path.join(work, "sv"))
+    shutil.copy(os.path.join(d, "init.gmm"), os.path.join(work, "init.gmm"))
+    if pkg == "jax":
+        from lia_ral_tpu.fa import jfa as fa_jfa
+        from lia_ral_tpu.tools import (compute_test, jfa_tools, norm_feat,
+                                       train_target)
+        cls, train_world = JConfig, j_train_world
+
+        def init(cls_, key, rank_v, rank_u, gmm, scale=0.001):
+            return fa_jfa.JfaModel(
+                v=jnp.asarray(v0[:rank_v]), u=jnp.asarray(u0[:rank_u]),
+                d=jnp.zeros(gmm.means.shape, jnp.float32),
+                ubm_means=jnp.asarray(gmm.means, jnp.float32),
+                ubm_inv_var=jnp.asarray(gmm.cov_inv, jnp.float32))
+    else:
+        from lia_ral_tpu_torch.fa import jfa as fa_jfa
+        from lia_ral_tpu_torch.tools import (compute_test, jfa_tools,
+                                             norm_feat, train_target)
+        cls, train_world = TConfig, t_train_world
+
+        def init(cls_, gen, rank_v, rank_u, gmm, scale=0.001):
+            return fa_jfa.JfaModel(
+                v=torch.from_numpy(v0[:rank_v]),
+                u=torch.from_numpy(u0[:rank_u]),
+                d=torch.zeros(tuple(gmm.means.shape)),
+                ubm_means=gmm.means, ubm_inv_var=gmm.cov_inv)
+    monkeypatch.setattr(fa_jfa.JfaModel, "init", classmethod(init))
+
+    def cfg(**extra):
+        return _config(cls, d, work, False, **extra)
+
+    train_world.main(cfg(inputFeatureFilename="bg.lst",
+                         inputWorldFilename="init",
+                         outputWorldFilename="wld"))
+    accs = os.path.join(work, "accs.npz")
+    jfa_tools.main(cfg(jfaMode="stats", ndxFilename=os.path.join(d, "dev.ndx"),
+                       accsFilename=accs))
+    mats = dict(eigenVoiceMatrix="EV", eigenChannelMatrix="EC", DMatrix="D")
+    jfa_tools.main(cfg(jfaMode="eigenVoice", loadAccs="true",
+                       accsFilename=accs, eigenVoiceNumber=JFA_RV,
+                       eigenChannelNumber=JFA_RU, nbIt=2,
+                       eigenVoiceMatrix="EV"))
+    jfa_tools.main(cfg(jfaMode="eigenChannel", loadAccs="true",
+                       accsFilename=accs, eigenChannelNumber=JFA_RU, nbIt=2,
+                       eigenVoiceMatrix="EV", eigenChannelMatrix="EC"))
+    jfa_tools.main(cfg(jfaMode="estimateD", loadAccs="true",
+                       accsFilename=accs, nbIt=2, regulationFactor=8.0,
+                       **mats))
+    # EigenVoice once more with orthonormalizeV, from the same init
+    jfa_tools.main(cfg(jfaMode="eigenVoice", loadAccs="true",
+                       accsFilename=accs, eigenVoiceNumber=JFA_RV,
+                       eigenChannelNumber=JFA_RU, nbIt=1,
+                       orthonormalizeV="true", eigenVoiceMatrix="EVortho"))
+    # TrainTarget enrols with a non-zero D (EstimateDMatrix's stays zero,
+    # see the test below), the same file on both sides
+    d_rng = np.random.default_rng(19)
+    write_matrix_file(os.path.join(work, "Dc.matx"),
+                      np.abs(d_rng.standard_normal((1, K * DIM))) * 0.3)
+    train_target.main(cfg(targetIdList=os.path.join(d, "targets2.ndx"),
+                          channelCompensation="JFA",
+                          saveVectorFilesPath=os.path.join(work, "sv") + "/",
+                          saveY="true", saveX="true", saveZ="true",
+                          **dict(mats, DMatrix="Dc")))
+    trials = os.path.join(d, "trials.ndx")
+    out = {"jfa": compute_test.main(cfg(
+        computeTestMode="jfa", ndxFilename=trials, eigenVoiceMatrix="EV",
+        eigenChannelMatrix="EC", topDistribsCount=5,
+        outputFilename=os.path.join(work, "jfa.nist")))}
+    # the LFA variants, from the carried U
+    shutil.copy(lfa_u or os.path.join(work, "EC.matx"),
+                os.path.join(work, "ECc.matx"))
+    train_target.main(cfg(targetIdList=os.path.join(d, "targets2.ndx"),
+                          channelCompensation="LFA",
+                          eigenChannelMatrix="ECc", meanAdapt="true",
+                          MAPAlgo="MAPOccDep", MAPRegFactorMean=14.0,
+                          nbTrainIt=2, saveMixtureFileExtension=".lfa.gmm"))
+    # ComputeTest reads the world with the clients' extension
+    shutil.copy(os.path.join(work, "wld.gmm"),
+                os.path.join(work, "wld.lfa.gmm"))
+    out["lfa"] = compute_test.main(cfg(
+        computeTestMode="lfa", ndxFilename=trials, eigenChannelMatrix="ECc",
+        loadMixtureFileExtension=".lfa.gmm", inputWorldFilename="wld",
+        regulationFactor=12.0, topDistribsCount=5,
+        outputFilename=os.path.join(work, "lfa.nist")))
+    # NormFeat reads and writes under one featureFilesPath: the work dir
+    feat = ["test_s0", "dev_s3_1", "enroll_s7"]
+    write_xlist(os.path.join(work, "feat.lst"), [[n] for n in feat])
+    for n in feat:
+        for ext in (".prm", ".lbl"):
+            if os.path.exists(os.path.join(d, n + ext)):
+                shutil.copy(os.path.join(d, n + ext), work)
+    norm_feat.main(cfg(mode="featLFA", lstPath=work + "/",
+                       inputFeatureFilename="feat.lst",
+                       eigenChannelMatrix="ECc",
+                       saveFeatureFileFormat="SPRO4",
+                       saveFeatureFileExtension=f".{pkg}.lfa.prm",
+                       featureFilesPath=work + "/"))
+    return out
+
+
+def test_jfa_chain_matches_jax(corpus, tmp_path, monkeypatch):
+    from lia_ral_tpu_torch.io.features import read_feature_file
+    from _torch_parity import N_TOL, SUM_TOL, assert_close_scaled
+
+    d, _ = corpus
+    rng = np.random.default_rng(17)
+    v0 = (rng.standard_normal((JFA_RV, K, DIM)) * 0.05).astype(np.float32)
+    u0 = (rng.standard_normal((JFA_RU, K, DIM)) * 0.05).astype(np.float32)
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
+    before = dict(launch_counts)
+    res = {"jax": _run_jfa_chain("jax", d, v0, u0, jdir, monkeypatch)}
+    res["torch"] = _run_jfa_chain("torch", d, v0, u0, tdir, monkeypatch,
+                                  lfa_u=os.path.join(jdir, "EC.matx"))
+    assert launch_counts == before          # CPU tensors: plain versions
+
+    at = np.load(os.path.join(tdir, "accs.npz"), allow_pickle=True)
+    aj = np.load(os.path.join(jdir, "accs.npz"), allow_pickle=True)
+    assert list(at["names"]) == list(aj["names"])
+    assert at["n"].shape == (N_SPK * SESS, K)
+    np.testing.assert_allclose(at["n"], aj["n"], rtol=N_TOL["rtol"],
+                               atol=N_TOL["atol"] * aj["n"].max())
+    np.testing.assert_allclose(at["f"], aj["f"], rtol=SUM_TOL["rtol"],
+                               atol=SUM_TOL["atol"] * np.abs(aj["f"]).max())
+    np.testing.assert_array_equal(np.load(os.path.join(tdir,
+                                                       "accs.npz.spk.npy")),
+                                  np.load(os.path.join(jdir,
+                                                       "accs.npz.spk.npy")))
+
+    def both(name):
+        return (read_matrix_file(os.path.join(tdir, name)),
+                read_matrix_file(os.path.join(jdir, name)))
+
+    for name, shape in (("EV.matx", (JFA_RV, K * DIM)),
+                        ("EC.matx", (JFA_RU, K * DIM)),
+                        ("D.matx", (1, K * DIM)),
+                        ("EVortho.matx", (JFA_RV, K * DIM))):
+        got, want = both(name)
+        assert got.shape == shape, name
+        print(name, end=": ")
+        _close(got, want, JFA_TOL)
+        # training moved the matrix off its init
+        if name in ("EV.matx", "EC.matx"):
+            init = (v0 if name == "EV.matx" else u0).reshape(shape)
+            assert np.abs(got - init).max() > 1e-3, name
+    ev = both("EVortho.matx")[0]
+    np.testing.assert_allclose(ev @ ev.T, np.eye(JFA_RV), atol=1e-5)
+    # EstimateDMatrix starts from D = 0 (JfaModel.init), a fixed point of
+    # the D update in both packages (z = D·Σ⁻¹·F̃/(τ + N·D²Σ⁻¹) = 0), so
+    # the tool writes zeros; tests/test_torch_jfa.py runs the update from
+    # a non-zero D
+    assert np.abs(both("D.matx")[0]).max() == 0
+    for s in range(N_SPK):
+        for a, b in zip(read_gmm_file(os.path.join(tdir, f"model{s}.gmm")),
+                        read_gmm_file(os.path.join(jdir, f"model{s}.gmm"))):
+            _close(a, b, JFA_TOL)
+        for ext in (".vect", ".y", ".x", ".z"):
+            got, want = both(os.path.join("sv", f"model{s}{ext}"))
+            assert got.shape == want.shape and got.shape[0] == 1
+            assert_close_scaled(got, want, JFA_TOL, err_msg=f"model{s}{ext}")
+        for a, b in zip(
+                read_gmm_file(os.path.join(tdir, f"model{s}.lfa.gmm")),
+                read_gmm_file(os.path.join(jdir, f"model{s}.lfa.gmm"))):
+            _close(a, b, 1e-4)
+    # the enrolled model is the world with shifted means
+    wt = read_gmm_file(os.path.join(tdir, "wld.gmm"))
+    mt = read_gmm_file(os.path.join(tdir, "model3.gmm"))
+    np.testing.assert_array_equal(mt[0], wt[0])
+    np.testing.assert_array_equal(mt[2], wt[2])
+    assert np.abs(mt[1] - wt[1]).max() > 1e-3
+    for mode in ("jfa", "lfa"):
+        got, want = res["torch"][mode], res["jax"][mode]
+        assert len(got) == len(want) == N_SPK * N_SPK
+        assert _trial_keys(got) == _trial_keys(want), mode
+        sg, sw = _scores(got), _scores(want)
+        assert np.isfinite(sg).all()
+        print(mode, f"max|Δ| {np.abs(sg - sw).max():.3e} of "
+              f"{np.abs(sw).max():.3e}")
+        np.testing.assert_allclose(sg, sw, rtol=0, atol=JFA_SCORE_ATOL,
+                                   err_msg=mode)
+        ft = read_nist_scores(os.path.join(tdir, mode + ".nist"))
+        assert _trial_keys(ft) == _trial_keys(got)
+        assert _eer_of(got) < 0.35, mode
+    for n in ("test_s0", "dev_s3_1", "enroll_s7"):
+        a = read_feature_file(os.path.join(tdir, n + ".torch.lfa.prm")).data
+        b = read_feature_file(os.path.join(jdir, n + ".jax.lfa.prm")).data
+        raw = read_feature_file(os.path.join(d, n + ".prm")).data
+        assert a.shape == raw.shape
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+        assert np.abs(a - raw).max() > 1e-3         # something was removed
+
+
+def test_jfa_tools_through_cli_and_skipped_sessions(corpus, tmp_path, capsys):
+    """ComputeJFAStats and EigenVoice by their CLI names (the preset
+    ``jfaMode``), with an unreadable session in the list: it is skipped
+    with a warning, the others keep their order; ``fastStats`` takes the
+    bf16 stats tier (its plain version here) and moves F by less than
+    its 2e-3 budget."""
+    d, _ = corpus
+    work = str(tmp_path)
+    shutil.copy(os.path.join(d, "init.gmm"), os.path.join(work, "init.gmm"))
+    write_xlist(os.path.join(work, "s.ndx"),
+                [["spkA", "dev_s0_0", "nosuchfile", "dev_s0_1"],
+                 ["spkB", "dev_s1_0"], ["spkA", "dev_s0_2"]])
+    common = ["--torchDevice", "cpu", "--featureFilesPath", d + "/",
+              "--labelFilesPath", d + "/", "--mixtureFilesPath", work + "/",
+              "--matrixFilesPath", work + "/",
+              "--loadFeatureFileFormat", "SPRO4",
+              "--inputWorldFilename", "init",
+              "--ndxFilename", os.path.join(work, "s.ndx")]
+    stats = {}
+    for tier in ("false", "true"):
+        accs = os.path.join(work, f"accs_{tier}.npz")
+        assert tmain.main(["ComputeJFAStats", "--accsFilename", accs,
+                           "--fastStats", tier, "--verbose", "true"]
+                          + common) == 0
+        out = capsys.readouterr().out
+        assert "cannot read session [nosuchfile]" in out
+        assert "stats [spkA/dev_s0_2]" in out
+        stats[tier] = np.load(accs, allow_pickle=True)
+        assert list(stats[tier]["names"]) == ["dev_s0_0", "dev_s0_1",
+                                              "dev_s1_0", "dev_s0_2"]
+        np.testing.assert_array_equal(np.load(accs + ".spk.npy"),
+                                      [0, 0, 1, 0])
+    df = np.abs(stats["true"]["f"] - stats["false"]["f"]).max()
+    assert 0 < df <= 2e-3 * np.abs(stats["false"]["f"]).max()
+    assert tmain.main(["EigenVoice", "--loadAccs", "true", "--accsFilename",
+                       os.path.join(work, "accs_false.npz"),
+                       "--eigenVoiceNumber", "2", "--nbIt", "1",
+                       "--eigenVoiceMatrix", "EV"] + common) == 0
+    ev = read_matrix_file(os.path.join(work, "EV.matx"))
+    assert ev.shape == (2, K * DIM) and np.isfinite(ev).all()
+    # ComputeTVStats is the same tool under its other name
+    assert tmain.main(["ComputeTVStats", "--accsFilename",
+                       os.path.join(work, "tv_accs.npz")] + common) == 0
+    np.testing.assert_array_equal(
+        np.load(os.path.join(work, "tv_accs.npz"), allow_pickle=True)["n"],
+        stats["false"]["n"])
 
 
 # -- the reference's own fixtures -------------------------------------------

@@ -1,6 +1,7 @@
 """PyTorch port vs the JAX package: fa/tv (TvModel, estimate_tett, the
-posteriors, exact i-vector extraction with PCG and Cholesky),
-backend/scoring, backend/eval and utils/shapes.
+posteriors, exact i-vector extraction with PCG and Cholesky, T-matrix EM,
+the ubmWeight and eigenDecomposition approximations, orthonormalize_t),
+backend/scoring (cosine), backend/eval and utils/shapes.
 
 Tolerances: i-vectors use the JAX suite's PCG-vs-Cholesky budget
 (tests/test_tv.py:242, rtol 2e-5, atol 2e-6) — both are exact f32
@@ -28,7 +29,8 @@ from lia_ral_tpu_torch.fa import stats as tstats
 from lia_ral_tpu_torch.fa import tv as ttv
 from lia_ral_tpu_torch.utils import shapes as tshapes
 
-from _torch_parity import both_gmms, np_of
+from _torch_parity import (assert_close_scaled, both_gmms, np_of,
+                           projector)
 
 W_TOL = dict(rtol=2e-5, atol=2e-6)
 MAT_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -235,3 +237,111 @@ def test_speaker_model_and_llk_check_match_jax(rng):
     want = jtv.verify_em_llk(jnp.asarray(x), jnp.asarray(mask), js, jm, jg,
                              max_utts=3)
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+# -- the fast approximations (ubmWeight, eigenDecomposition) --------------------
+
+def _ubm_weights(rng, k=16):
+    w = (rng.random(k) + 0.5).astype(np.float32)
+    return w / w.sum()
+
+
+def test_weighted_cov_and_norm_t_match_jax(rng):
+    """T̄ element-wise (one multiply: 1e-6) and W = Σ_c w_c·T̄_c T̄_cᵀ
+    within 1e-5 of scale."""
+    jm, tm, _, _ = _case(rng)
+    w = _ubm_weights(rng)
+    np.testing.assert_allclose(np_of(ttv.norm_t_matrix(tm)),
+                               np_of(jtv.norm_t_matrix(jm)), rtol=1e-6,
+                               atol=1e-7)
+    got = ttv.weighted_cov(tm, torch.from_numpy(w))
+    assert_close_scaled(got, jtv.weighted_cov(jm, jnp.asarray(w)), 1e-5)
+    np.testing.assert_allclose(np_of(got), np_of(got).T, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("chunk", [8, 64])
+def test_estimate_w_ubm_weight_matches_jax(rng, chunk):
+    """From the same W: W_TOL (a batched Cholesky solve per utterance on
+    both sides); a chunk that leaves a ragged tail and one that exceeds
+    S give the same rows, and a zero-occupancy utterance gives w = 0."""
+    jm, tm, js, ts = _case(rng)
+    w_mat = np.array(jtv.weighted_cov(jm, jnp.asarray(_ubm_weights(rng))))
+    got = ttv.estimate_w_ubm_weight(ts, tm, torch.from_numpy(w_mat),
+                                    chunk=chunk)
+    want = jtv.estimate_w_ubm_weight(js, jm, jnp.asarray(w_mat), chunk=chunk)
+    assert got.shape == (21, 8)
+    np.testing.assert_allclose(np_of(got), np_of(want), **W_TOL)
+    n0, f0 = ts.n.clone(), ts.f.clone()
+    n0[4], f0[4] = 0.0, 0.0
+    w0 = ttv.estimate_w_ubm_weight(tstats.BwStats(n0, f0), tm,
+                                   torch.from_numpy(w_mat), chunk=chunk)
+    assert float(w0[4].abs().max()) == 0.0
+    np.testing.assert_allclose(np_of(w0[5:]), np_of(got[5:]), rtol=1e-6,
+                               atol=1e-7)
+
+
+def test_eigen_decomposition_matches_jax(rng):
+    """Q's column signs are the eigensolver's, so Q is compared through
+    what does not depend on them: QᵀQ = I, Q·diag(λ)·Qᵀ = W (1e-5 of
+    scale), D = approximate_tctc (1e-4 of scale, columns in the same
+    ascending-eigenvalue order), and the i-vectors
+    Q·diag(1/(1+N·D))·Qᵀ·aux (W_TOL scaled to max|w|)."""
+    jm, tm, js, ts = _case(rng)
+    w_mat = np.array(jtv.weighted_cov(jm, jnp.asarray(_ubm_weights(rng))))
+    qt = ttv.eigen_decompose_w(torch.from_numpy(w_mat))
+    qj = jtv.eigen_decompose_w(jnp.asarray(w_mat))
+    np.testing.assert_allclose(np_of(qt.T @ qt), np.eye(8), atol=1e-5)
+    lam = np.linalg.eigvalsh(w_mat.astype(np.float64))
+    assert_close_scaled(np_of(qt) * lam[None] @ np_of(qt).T, w_mat, 1e-5)
+    np.testing.assert_allclose(np.abs(np_of(qt.T) @ np_of(qj)), np.eye(8),
+                               atol=1e-3)
+    dt, dj = ttv.approximate_tctc(tm, qt), jtv.approximate_tctc(jm, qj)
+    assert dt.shape == (16, 8)
+    assert_close_scaled(dt, dj, 1e-4)
+    # the same D from a Q with flipped signs
+    flip = torch.tensor([1.0, -1.0] * 4)
+    np.testing.assert_allclose(np_of(ttv.approximate_tctc(tm, qt * flip)),
+                               np_of(dt), rtol=1e-5, atol=1e-6)
+    got = ttv.estimate_w_eigen_decomposition(ts, tm, dt, qt)
+    want = jtv.estimate_w_eigen_decomposition(js, jm, dj, qj)
+    assert_close_scaled(got, want, 2e-5)
+
+
+def test_approximate_ivectors_near_exact(rng):
+    """A sanity bound inside the port, not a parity check: on stats drawn
+    from the model's own T (the regime the approximations are made for)
+    both approximate i-vectors point the way the exact ones do (mean
+    cosine > 0.9)."""
+    jg, tg = both_gmms(rng, 16, 6)
+    r, s = 8, 40
+    t = (rng.standard_normal((r, 16, 6)) * 0.3).astype(np.float32)
+    tm = ttv.TvModel.from_ubm(t, tg)
+    w_true = rng.standard_normal((s, r)).astype(np.float32)
+    n = np.tile(np_of(tg.weights)[None] * 400.0, (s, 1)).astype(np.float32)
+    shift = np.einsum("sr,rkd->skd", w_true, t)
+    f = n[..., None] * (np_of(tg.means)[None] + shift)
+    ts = convert.bw_stats_from_numpy(n, f.astype(np.float32))
+    exact = ttv.estimate_w(ts, tm, solver="cholesky")
+    w_mat = ttv.weighted_cov(tm, tg.weights)
+    q = ttv.eigen_decompose_w(w_mat)
+    for approx in (ttv.estimate_w_ubm_weight(ts, tm, w_mat),
+                   ttv.estimate_w_eigen_decomposition(
+                       ts, tm, ttv.approximate_tctc(tm, q), q)):
+        cos = torch.nn.functional.cosine_similarity(approx, exact, dim=1)
+        assert float(cos.mean()) > 0.9, float(cos.mean())
+
+
+def test_orthonormalize_t_matches_jax(rng):
+    """QR fixes no signs (unlike fa.jfa.orthonormalize_v), so the two
+    packages may differ in the sign of a row: compared through the
+    projector onto the rows' space (1e-5) and the rows' Gram matrix
+    T·Tᵀ = I; rows agree up to sign."""
+    jm, tm, _, _ = _case(rng)
+    ot, oj = ttv.orthonormalize_t(tm), jtv.orthonormalize_t(jm)
+    assert ot.t.shape == tm.t.shape and ot.t.is_contiguous()
+    ft, fj = np_of(ot.t_flat()), np_of(oj.t_flat())
+    np.testing.assert_allclose(ft @ ft.T, np.eye(8), atol=1e-5)
+    np.testing.assert_allclose(projector(ft), projector(fj), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(np.abs(ft @ fj.T), np.eye(8), atol=1e-4)
+    assert torch.equal(ot.ubm_means, tm.ubm_means)
