@@ -6,9 +6,12 @@ The tool names are the reference binaries' (and the JAX package's
 their mode key preset.  The port runs the GMM-UBM chain EnergyDetector →
 NormFeat → TrainWorld → TrainTarget → ComputeTest → ComputeNorm, the
 i-vector chain TrainWorld → TotalVariability → IvExtractor → IvNorm →
-PLDA → IvTest and the JFA chain ComputeJFAStats → EigenVoice →
-EigenChannel → EstimateDMatrix; every other tool prints that it is not
-ported yet and exits 2.  Config key ``torchDevice`` (default ``cuda``)
+PLDA → IvTest, the JFA chain ComputeJFAStats → EigenVoice →
+EigenChannel → EstimateDMatrix, the diarization chain
+AcousticSegmentation → TurnDetection → Segmentation → ReSegmentation,
+SpkAdapt, and SpkDetServer (the TCP server of ``api/server``, config key
+``port``); the utility tools (Scoring … SvmPredict) print that they are
+not ported yet and exit 2.  Config key ``torchDevice`` (default ``cuda``)
 names the device.
 """
 
@@ -35,13 +38,21 @@ TOOLS: dict[str, tuple[str, dict[str, str]] | None] = {
     "EigenVoice": ("jfa_tools", {"jfaMode": "eigenVoice"}),
     "EigenChannel": ("jfa_tools", {"jfaMode": "eigenChannel"}),
     "EstimateDMatrix": ("jfa_tools", {"jfaMode": "estimateD"}),
+    "SpkAdapt": ("spk_adapt", {}),
+    # the JAX umbrella presets "acoustic", a key its tool does not have;
+    # the port presets the tool's own key
+    "AcousticSegmentation": ("spkseg_tools",
+                             {"segMode": "acousticSegmentation"}),
+    "TurnDetection": ("spkseg_tools", {"segMode": "turnDetection"}),
+    "Segmentation": ("spkseg_tools", {"segMode": "segmentation"}),
+    "ReSegmentation": ("spkseg_tools", {"segMode": "resegmentation"}),
+    "SpkDetServer": ("", {}),           # api/server, handled in main()
     **{name: None for name in (
-        "SpkAdapt", "AcousticSegmentation", "TurnDetection", "Segmentation",
-        "ReSegmentation", "Scoring", "FusionScore", "ScoreWarp", "Hist",
+        "Scoring", "FusionScore", "ScoreWarp", "Hist",
         "ModelToSv", "NAPSV", "CovIntra", "ReadFeatFile", "ReadModel",
         "ExtractParams", "PolyExp", "GmmTokenizer", "BNGram", "LabelNGram",
         "SequenceDecode", "SequenceExtractor", "LabelFusion",
-        "TimeCluster", "SvmTrain", "SvmPredict", "SpkDetServer")},
+        "TimeCluster", "SvmTrain", "SvmPredict")},
 }
 
 
@@ -57,7 +68,8 @@ def main(argv: list[str] | None = None) -> int:
                 print(f"  {name:<{width}}  -> not ported yet")
                 continue
             mode = next(iter(tool[1].values()), "")
-            print(f"  {name:<{width}}  -> tools/{tool[0]}"
+            target = f"tools/{tool[0]}" if tool[0] else "api/server"
+            print(f"  {name:<{width}}  -> {target}"
                   + (f" [{mode}]" if mode else ""))
         return 0
     name, rest = argv[0], argv[1:]
@@ -67,12 +79,20 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     if TOOLS[name] is None:
         print(f"tool {name} is not ported to lia_ral_tpu_torch yet "
-              "(see ROADMAP.md); the JAX package runs it: "
+              "(a utility tool of ROADMAP.md queue 1, item 13); the JAX "
+              "package runs it: "
               f"python -m lia_ral_tpu {name}", file=sys.stderr)
         return 2
     import importlib
 
     from .config import Config
+    if name == "SpkDetServer":
+        from .api.server import serve_forever
+        from .tools.common import resolve_device
+        cfg = Config.from_cli(rest)
+        serve_forever(cfg, port=cfg.get_int("port", 32114),
+                      device=resolve_device(cfg))
+        return 0
     mod_name, preset = TOOLS[name]
     mod = importlib.import_module(f".tools.{mod_name}", __package__)
     cfg = Config.from_cli(rest)

@@ -1,8 +1,8 @@
 """Parameters of the JAX package (as numpy arrays) → port state, and back.
 
 The JAX package is never imported here: a caller turns a JAX GmmDiag,
-TvModel, TvAccums, EmStats, BwStats, DevSet, PldaModel, JfaModel, JfaStats
-or SubspaceAccums into numpy (``np.asarray`` on each field) and passes the
+TvModel, TvAccums, EmStats, BwStats, DevSet, PldaModel, JfaModel, JfaStats,
+SubspaceAccums or DiarHmm into numpy (``np.asarray`` on each field) and passes the
 arrays in, so both packages compute from identical values.
 """
 
@@ -20,6 +20,7 @@ from .fa.stats import BwStats
 from .fa.tv import TvAccums, TvModel
 from .gmm.kernels import EmStats
 from .gmm.model import GmmDiag
+from .seg.hmm import DiarHmm
 
 
 def _t(a, device) -> torch.Tensor:
@@ -90,15 +91,29 @@ def subspace_accums_from_numpy(a, c, device=None) -> SubspaceAccums:
     return SubspaceAccums(_t(a, device), _t(c, device))
 
 
+def hmm_from_numpy(weights, means, cov_inv, names, trans,
+                   device=None) -> DiarHmm:
+    """A DiarHmm from its stacked state bank (weights (S,K), means and
+    cov_inv (S,K,D)), the state names and the (S,S) transition
+    PROBABILITIES (the log and its 1e-30 floor are taken here, as
+    ``DiarHmm.from_gmms`` takes them)."""
+    return DiarHmm(gmm_from_numpy(weights, means, cov_inv, device),
+                   list(names),
+                   torch.log(_t(trans, device) + 1e-30))
+
+
 _STATE_TYPES = (GmmDiag, TvModel, TvAccums, EmStats, BwStats, PldaModel,
                 JfaModel, JfaStats, SubspaceAccums)
 
 
 def to_numpy(obj) -> dict[str, np.ndarray]:
     """Fields of a port state object (GmmDiag, TvModel, TvAccums, EmStats,
-    BwStats, PldaModel, JfaModel, JfaStats, SubspaceAccums) as numpy
-    arrays, keyed by the field names both packages share; a nested
+    BwStats, PldaModel, JfaModel, JfaStats, SubspaceAccums, DiarHmm) as
+    numpy arrays, keyed by the field names both packages share; a nested
     BwStats (``JfaStats.spk`` / ``.sess``) becomes a dict of its own."""
+    if isinstance(obj, DiarHmm):
+        return {**to_numpy(obj.gmms), "names": list(obj.names),
+                "log_trans": obj.log_trans.detach().cpu().numpy()}
     if not isinstance(obj, _STATE_TYPES):
         raise TypeError(f"to_numpy: unsupported {type(obj).__name__}")
     out = {}

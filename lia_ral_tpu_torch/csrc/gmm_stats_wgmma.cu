@@ -24,9 +24,10 @@
 //              and bf16(xa s), and the occupancy column is the exact f32
 //              sum_t p s_t instead (:89-98).
 //   fastMath   logits in one pass on bf16(xa) and bf16(B), cst added in
-//              f32 after the product (:165-176); the stats stay f32-grade
-//              (three passes), the port's reading of "sufficient stats
-//              stay f32" (lia_ral_tpu/gmm/em.py:71-73).
+//              f32 after the product (:165-176); the stats product is one
+//              pass on bf16(p) and bf16(xa s) too, as the TPU's matrix unit
+//              runs an f32 product at default precision (:300-301, :203-206),
+//              and the occupancy is that product's column 2D.
 //   both       fastMath logits with fastStats stats.
 //
 // What bounds it on this card.  4 N K A flops in two chained products
@@ -594,7 +595,7 @@ stats_kernel(const float* __restrict__ w, const float* __restrict__ llk,
              const bf16* __restrict__ bprep, const float* __restrict__ cstv,
              const bf16* __restrict__ tiles, long long n_frames,
              int chunk_len, int tiles_per_chunk, int K, int n_ktiles,
-             int k_blocks, int D, int WP, int three_l, int nx,
+             int k_blocks, int D, int WP, int three_l, int three_s, int nx,
              float* __restrict__ out) {
     extern __shared__ uint4 smem_raw[];
     char* sm = reinterpret_cast<char*>(smem_raw);
@@ -608,7 +609,6 @@ stats_kernel(const float* __restrict__ w, const float* __restrict__ llk,
     const int ktile = kblock * 2 + wg;
     const bool has_tile = ktile < n_ktiles;      // uniform in the warpgroup
     const bool turns = kblock * 2 + 1 < n_ktiles;    // both have a tile
-    const bool three_s = !nx;
 
     bf16* sB = reinterpret_cast<bf16*>(sm + L.b) + wg * 2 * KT * WP;
     float* sC = reinterpret_cast<float*>(sm + L.cst) + wg * KT;
@@ -850,7 +850,7 @@ cudaError_t launch_stats(const float* x, const float* w, const float* llk,
                          const float* cstv, bf16* tiles, long long n_frames,
                          int chunk_len, int n_chunks, int tiles_per_chunk,
                          int K, int n_ktiles, int D, int WP, int three_l,
-                         int nx, float* out, cudaStream_t st) {
+                         int three_s, int nx, float* out, cudaStream_t st) {
     const int tiles_smem = (round_up(TF * D, 4) + TF) * 4;
     cudaError_t e = cudaFuncSetAttribute(
         tiles_kernel<NS, TF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -858,7 +858,7 @@ cudaError_t launch_stats(const float* x, const float* w, const float* llk,
     if (e != cudaSuccess) return e;
     tiles_kernel<NS, TF><<<(unsigned)((long long)n_chunks * tiles_per_chunk),
                            NT, tiles_smem, st>>>(
-        x, s, n_frames, chunk_len, tiles_per_chunk, D, WP, three_l, !nx,
+        x, s, n_frames, chunk_len, tiles_per_chunk, D, WP, three_l, three_s,
         tiles);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
@@ -871,7 +871,8 @@ cudaError_t launch_stats(const float* x, const float* w, const float* llk,
     stats_kernel<NS, TF><<<(unsigned)((long long)n_chunks * k_blocks), NT,
                            L.total, st>>>(
         w, llk, m, s, bprep, cstv, tiles, n_frames, chunk_len,
-        tiles_per_chunk, K, n_ktiles, k_blocks, D, WP, three_l, nx, out);
+        tiles_per_chunk, K, n_ktiles, k_blocks, D, WP, three_l, three_s, nx,
+        out);
     return cudaGetLastError();
 }
 
@@ -886,7 +887,7 @@ cudaError_t run(const float* x, const float* w, const float* weights,
         return cudaErrorInvalidValue;
     const Shape sh(D);
     const int WP = sh.WP, n_ktiles = (K + KT - 1) / KT;
-    const int three_l = tier < 2, nx = tier & 1;
+    const int three_l = tier < 2, three_s = tier == 0, nx = tier & 1;
     bf16* bprep = reinterpret_cast<bf16*>(scratch + sc.bprep);
     float* cstv = reinterpret_cast<float*>(scratch + sc.cstv);
     float* llk = reinterpret_cast<float*>(scratch + sc.llk);
@@ -906,16 +907,16 @@ cudaError_t run(const float* x, const float* w, const float* weights,
         return launch_stats<16, 128>(x, w, llk, m, s, bprep, cstv, tiles,
                                      n_frames, chunk_len, n_chunks,
                                      sc.tiles_per_chunk, K, n_ktiles, D, WP,
-                                     three_l, nx, out, st);
+                                     three_l, three_s, nx, out, st);
     if (sh.NS == 80)
         return launch_stats<80, 128>(x, w, llk, m, s, bprep, cstv, tiles,
                                      n_frames, chunk_len, n_chunks,
                                      sc.tiles_per_chunk, K, n_ktiles, D, WP,
-                                     three_l, nx, out, st);
+                                     three_l, three_s, nx, out, st);
     return launch_stats<144, 64>(x, w, llk, m, s, bprep, cstv, tiles,
                                  n_frames, chunk_len, n_chunks,
                                  sc.tiles_per_chunk, K, n_ktiles, D, WP,
-                                 three_l, nx, out, st);
+                                 three_l, three_s, nx, out, st);
 }
 
 }  // namespace

@@ -13,9 +13,11 @@ Tiers, as the JAX kernels name them: the default (``bf16x3``: both
 operands of each product split into bf16 hi and lo, three passes,
 f32-grade), fastStats (``stats_pass="bf16nx"``: one bf16 pass for the S/F
 contraction, exact occupancies), fastMath
-(``compute_dtype=torch.bfloat16``: one-pass bf16 base-2 logits, f32-grade
-stats), and both together.  All run base-2 logits.  Each tier has a plain
-version here that rounds at the same points as its kernel.
+(``compute_dtype=torch.bfloat16``: one-pass bf16 base-2 logits and a
+one-pass bf16 stats product whose column 2D is the occupancy, as the TPU's
+matrix unit runs an f32 product at default precision), and both
+together.  All run base-2 logits.  Each tier has a plain version here
+that rounds at the same points as its kernel.
 
 Dispatch is on the device of the input, with no fallback: a CPU tensor
 goes to the plain version (``em_stats_reference``/``bw_stats_reference``),
@@ -131,7 +133,10 @@ def _tier_block(x: torch.Tensor, w: torch.Tensor, bt: torch.Tensor,
     xa = [x², x, 1]; p = exp2(ld − m) unnormalised with m the row max,
     s = w / Σp, and the stats pᵀ·(xa·s).  Default tier: both products as
     three bf16 passes (``_dot3``).  fastMath: one-pass logits on bf16
-    operands, cst added in f32.  fastStats: one-pass stats on bf16
+    operands, cst added in f32, and one-pass stats on bf16 operands
+    with the occupancy that product's column 2D (the TPU kernel's
+    ``jnp.dot(p.T, xs, precision=DEFAULT)`` on f32 operands is one bf16
+    pass on the matrix unit).  fastStats: one-pass stats on bf16
     operands, the occupancy column the exact Σ p·s instead."""
     d = x.shape[-1]
     xa = torch.cat([x * x, x, torch.ones_like(x[..., :1])], dim=-1)
@@ -145,11 +150,13 @@ def _tier_block(x: torch.Tensor, w: torch.Tensor, bt: torch.Tensor,
     llk = torch.log(ssum) + m[..., 0] * LN_2
     s = w / ssum
     xs = xa * s[..., None]
-    if tier & 1:            # fastStats
+    if tier:                # one bf16 pass
         stats = _bf16r(p).transpose(-1, -2) @ _bf16r(xs)
-        n = torch.sum(p * s[..., None], dim=-2)
     else:
         stats = _dot3(p.transpose(-1, -2), xs)
+    if tier & 1:            # fastStats: the exact occupancy
+        n = torch.sum(p * s[..., None], dim=-2)
+    else:
         n = stats[..., 2 * d]
     return (n, stats[..., d:2 * d], stats[..., :d],
             torch.sum(llk * w, dim=-1))

@@ -213,6 +213,57 @@ def mixture_init(generator: torch.Generator, x: torch.Tensor,
         .to(x.dtype).contiguous())
 
 
+def _split_component(gmm: GmmDiag, idx: int) -> GmmDiag:
+    """Split component ``idx`` into mean±sqrt(cov) halves of equal weight
+    (the inner step of reference mixtureInitBySplit, Tools.cpp:1057)."""
+    sd = torch.sqrt(1.0 / gmm.cov_inv[idx])
+    half = gmm.weights[idx] / 2.0
+    weights = torch.cat([gmm.weights, half[None]])
+    weights[idx] = half
+    means = torch.cat([gmm.means, (gmm.means[idx] - sd)[None]])
+    means[idx] = gmm.means[idx] + sd
+    return GmmDiag(weights=weights, means=means,
+                   cov_inv=torch.cat([gmm.cov_inv, gmm.cov_inv[idx][None]]))
+
+
+def mixture_init_by_split(generator: torch.Generator, x: torch.Tensor,
+                          w: torch.Tensor, max_distrib: int,
+                          cfg: "TrainCfg | None" = None, stats_fn=None,
+                          chunk: int = 4096,
+                          verbose: bool = False) -> GmmDiag:
+    """Binary-splitting GMM initialisation — reference mixtureInitBySplit
+    (Tools.cpp:1057-1240): start from one Gaussian at the global
+    mean/covariance; while 2K ≤ max split EVERY component into
+    mean±sqrt(cov) halves and EM-retrain; then unitary splits of the
+    heaviest component (the first one on a tie) until K == max, EM after
+    each.  Used to make the diarization world model (createWorld,
+    Tools.cpp:1243).  The only random draws are ``train_model``'s bagged
+    masks."""
+    cfg = cfg or TrainCfg(nb_train_it=3)
+    gmean, gcov = global_mean_cov(x, w)
+    gmm = GmmDiag(weights=torch.ones((1,), dtype=x.dtype, device=x.device),
+                  means=gmean[None].to(x.dtype),
+                  cov_inv=(1.0 / torch.clamp(gcov, min=1e-8))[None]
+                  .to(x.dtype))
+
+    def retrain(g):
+        return train_model(generator, x, w, g, cfg, stats_fn=stats_fn,
+                           chunk=chunk, verbose=verbose)
+
+    while 2 * gmm.n_components <= max_distrib:
+        for d in range(gmm.n_components):   # split every component
+            gmm = _split_component(gmm, d)
+        gmm = retrain(gmm)
+        if verbose:
+            print(f"split init: {gmm.n_components} components")
+    while gmm.n_components < max_distrib:   # unitary splits
+        gmm = _split_component(gmm, int(torch.argmax(gmm.weights)))
+        gmm = retrain(gmm)
+        if verbose:
+            print(f"split init (unitary): {gmm.n_components} components")
+    return gmm
+
+
 def reduce_model(gmm: GmmDiag, target_count: int) -> GmmDiag:
     """Keep the heaviest components and renormalise (reference
     selectComponent/reduceModel, TrainTools.cpp:175-222)."""

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1 (em_stats_fused) and K2 (bw_stats_fused) of the
-PyTorch port against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1 (em_stats_fused), K2 (bw_stats_fused) and the
+Viterbi decoder of the PyTorch port against their plain PyTorch versions,
+on the card.
 
 Every test here is marked ``cuda`` and skips where torch sees no CUDA
 device.  This file imports neither jax nor the JAX package, so it also
@@ -15,11 +16,13 @@ Tolerances: the JAX suite's CPU budgets (tests/test_pallas_kernel.py
 tens of thousands of frames are O(10³); llk rel 1e-5.  The default tier
 runs both products as three bf16 passes, as its plain version does, and
 is also held against float64 (n and sums 1e-3·max|·|: the dropped lo·lo
-terms and the bf16 rounding of lo leave ~2⁻¹⁷ per product term).  The fastStats
-tiers' S/F: 2e-3·max|·| (a bf16 rounding of p or xa·s flips on an
+terms and the bf16 rounding of lo leave ~2⁻¹⁷ per product term).  Every
+other tier's stats product is one bf16 pass (fastStats by its key,
+fastMath as the TPU's matrix unit runs an f32 product), so its S/F
+budget is 2e-3·max|·| (a bf16 rounding of p or xa·s flips on an
 f32-level difference between the kernel's and the plain version's
-logits).  The fastMath tier rounds its operands at the same points as
-its plain version and keeps the default budgets.  A tier's kernel must
+logits).  fastMath alone takes its occupancy from that product's column
+and gets the same budget for n.  A tier's kernel must
 also sit closer to its own plain version than to the default tier's, so
 that rounding at other points would show.
 """
@@ -107,8 +110,18 @@ TIERS = [(None, "bf16nx", "fastStats"), (torch.bfloat16, "x3", "fastMath"),
          (torch.bfloat16, "bf16nx", "fastMath+fastStats")]
 
 
-def _tier_sum_rtol(stats_pass):
-    return 2e-3 if stats_pass == "bf16nx" else 1e-3
+def _tier_sum_rtol(stats_pass, compute_dtype):
+    """S/F budget of a tier (every tier of ``TIERS`` is one pass; the
+    default tier, ``compute_dtype=None`` with "x3", is three)."""
+    one_pass = stats_pass == "bf16nx" or compute_dtype is torch.bfloat16
+    return 2e-3 if one_pass else 1e-3
+
+
+def _tier_n_rtol(stats_pass, compute_dtype):
+    """Occupancy budget: exact sums (1e-4) but for fastMath alone, whose n
+    is a column of the one-pass product."""
+    alone = compute_dtype is torch.bfloat16 and stats_pass == "x3"
+    return 2e-3 if alone else 1e-4
 
 
 def _closer_to_tier(got, tier_plain, default_plain):
@@ -139,9 +152,9 @@ def test_k1_tiers_cuda_match_plain(cuda_device, n, k, d, chunk, cdt, sp,
     assert ck.launch_counts[key] == before + 1
     want = ck.em_stats_reference(xt, wt, tg, compute_dtype=cdt,
                                  stats_pass=sp)
-    _close(got.n, want.n, 1e-4)
-    _close(got.sum_x, want.sum_x, _tier_sum_rtol(sp))
-    _close(got.sum_xx, want.sum_xx, _tier_sum_rtol(sp))
+    _close(got.n, want.n, _tier_n_rtol(sp, cdt))
+    _close(got.sum_x, want.sum_x, _tier_sum_rtol(sp, cdt))
+    _close(got.sum_xx, want.sum_xx, _tier_sum_rtol(sp, cdt))
     np.testing.assert_allclose(float(got.llk), float(want.llk), rtol=1e-5)
     np.testing.assert_allclose(float(got.count), float(want.count),
                                rtol=1e-6)
@@ -173,8 +186,8 @@ def test_k2_tiers_cuda_match_plain(cuda_device, s, t, k, d, cdt, sp, name):
     assert ck.launch_counts[key] == before + 1
     rn, rf, rl = ck.bw_stats_reference(xt, mt, tg, compute_dtype=cdt,
                                        stats_pass=sp)
-    _close(n, rn, 1e-4)
-    _close(f, rf, _tier_sum_rtol(sp))
+    _close(n, rn, _tier_n_rtol(sp, cdt))
+    _close(f, rf, _tier_sum_rtol(sp, cdt))
     np.testing.assert_allclose(np_of(llk), np_of(rl), rtol=1e-5)
     assert torch.all(n[-1] == 0) and torch.all(f[-1] == 0)
     assert float(llk[-1]) == 0.0
@@ -263,8 +276,8 @@ def test_k2_unaligned_start_cuda_matches_plain(cuda_device):
                                       stats_pass=sp)
         rn, rf, rl = ck.bw_stats_reference(xt, mt, tg, compute_dtype=cdt,
                                            stats_pass=sp)
-        _close(n, rn, 1e-4)
-        _close(f, rf, _tier_sum_rtol(sp))
+        _close(n, rn, _tier_n_rtol(sp, cdt))
+        _close(f, rf, _tier_sum_rtol(sp, cdt))
         np.testing.assert_allclose(np_of(llk), np_of(rl), rtol=1e-5)
         assert torch.all(n[-1] == 0) and torch.all(f[-1] == 0)
     x1 = flat[1:1 + 300 * d].view(300, d)
@@ -412,3 +425,113 @@ def test_jfa_session_stats_run_k2_on_cuda(cuda_device, tmp_path):
             _close(g.f, w_.f, rtol)
         # every frame has weight 1: the occupancies sum to the lengths
         np.testing.assert_allclose(np_of(got.sess.n).sum(1), lens, rtol=1e-4)
+
+
+# -- the Viterbi decoder --------------------------------------------------------
+
+@pytest.mark.parametrize("n,s", [(30000, 5), (1, 1), (1, 7), (2, 3),
+                                 (1025, 2), (1026, 32), (4097, 9),
+                                 (33, 16), (65, 4)])
+def test_viterbi_cuda_equals_plain_loop(cuda_device, n, s):
+    """The kernel's path equals ``viterbi_reference``'s state for state
+    (f32 adds and maxima only), at the lengths around its register chunk
+    (32 steps) and backtrace chunk (1024 steps), and it counts one launch;
+    a rerun gives the same path."""
+    from lia_ral_tpu_torch.seg import hmm
+
+    rng = np.random.default_rng(31)
+    em = torch.from_numpy((rng.standard_normal((n, s)) * 3)
+                          .astype(np.float32)).to(cuda_device)
+    lt = torch.log(torch.from_numpy(hmm.compute_transitions(s)
+                                    .astype(np.float32)) + 1e-30
+                   ).to(cuda_device)
+    before = hmm.launch_counts["viterbi"]
+    got = hmm.viterbi_cuda(em, lt)
+    torch.cuda.synchronize()
+    assert hmm.launch_counts["viterbi"] == before + 1
+    assert got.dtype == torch.int64 and got.shape == (n,)
+    want = hmm.viterbi_reference(em.cpu(), lt.cpu())
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(hmm._viterbi(em, lt), got)
+
+
+def test_viterbi_cuda_ties_and_inactive_states(cuda_device):
+    """Ties (emissions on a coarse grid, uniform transitions) go to the
+    first index as in the plain loop; inactive states (emission −1e30,
+    transition log 1e-30) are never entered."""
+    from lia_ral_tpu_torch.seg import hmm
+
+    rng = np.random.default_rng(32)
+    em = torch.from_numpy(rng.integers(0, 2, (5000, 4)).astype(np.float32))
+    lt = torch.zeros((4, 4))
+    got = hmm.viterbi_cuda(em.to(cuda_device), lt.to(cuda_device))
+    assert torch.equal(got.cpu(), hmm.viterbi_reference(em, lt))
+    em = torch.from_numpy((rng.standard_normal((5000, 5)) * 2)
+                          .astype(np.float32))
+    em[:, 3:] = -1e30
+    t = np.full((5, 5), 1e-30)
+    t[:3, :3] = hmm.compute_transitions(3)
+    lt = torch.log(torch.from_numpy(t.astype(np.float32)))
+    got = hmm.viterbi_cuda(em.to(cuda_device), lt.to(cuda_device))
+    assert int(got.max()) < 3
+    assert torch.equal(got.cpu(), hmm.viterbi_reference(em, lt))
+
+
+def test_viterbi_cuda_never_reaches_the_plain_loop(cuda_device, monkeypatch):
+    """A CUDA tensor launches the kernel through every entry point of the
+    diarization stack, with the plain loop made to raise; bad inputs
+    raise."""
+    from lia_ral_tpu_torch.seg import diarization, hmm
+
+    def boom(*args, **kwargs):
+        raise AssertionError("the plain loop ran on a CUDA tensor")
+
+    monkeypatch.setattr(hmm, "viterbi_reference", boom)
+    rng = np.random.default_rng(33)
+    x = np.concatenate([rng.standard_normal((300, 6)) + m
+                        for m in (3.0, -3.0, 3.0)]).astype(np.float32)
+    models = [gmm_from_numpy(np.ones(1, np.float32),
+                             np.full((1, 6), m, np.float32),
+                             np.ones((1, 6), np.float32), device=cuda_device)
+              for m in (3.0, -3.0)]
+    before = hmm.launch_counts["viterbi"]
+    _, path = diarization.acoustic_segmentation(x, models, ["a", "b"])
+    assert hmm.launch_counts["viterbi"] == before + 1
+    assert (path[:299] == 0).all() and (path[300:599] == 1).all()
+    world = _gmm(5, 8, 6, cuda_device)
+    k1 = ck.launch_counts["em_stats_fused"]
+    diarization.e_hmm_segmentation(x, world, max_speakers=2,
+                                   init_seg_frames=100, nb_decode_it=1)
+    # 1 + 1·(1 + 1) adaptations of 2 rows × 3 MAP iterations; 2 + 1·2 decodes
+    assert ck.launch_counts["em_stats_fused"] == k1 + 3 * 2 * 3
+    assert hmm.launch_counts["viterbi"] == before + 1 + 4
+    em = torch.zeros((10, 3), device=cuda_device)
+    with pytest.raises(ValueError):
+        hmm.viterbi_cuda(torch.zeros((10, 33), device=cuda_device),
+                         torch.zeros((33, 33), device=cuda_device))
+    with pytest.raises(TypeError):
+        hmm.viterbi_cuda(em.double(), torch.zeros((3, 3),
+                                                  device=cuda_device))
+    with pytest.raises(ValueError):
+        hmm.viterbi_cuda(em, torch.zeros((3, 3)))
+
+
+def test_state_adapt_on_cuda_keeps_empty_rows(cuda_device):
+    """K1 gives a zero-weight frame s = 0, so a state row whose mask is
+    all zero comes back as the world, every number finite, on the card
+    too."""
+    from lia_ral_tpu_torch.seg import diarization
+
+    rng = np.random.default_rng(34)
+    world = _gmm(6, 128, 24, cuda_device)
+    x = torch.from_numpy(rng.standard_normal((3000, 24), dtype=np.float32)
+                         ).to(cuda_device)
+    masks = torch.zeros((2, 3000), device=cuda_device)
+    masks[0, :1500] = 1.0
+    g = torch.Generator(device=cuda_device)
+    bank = diarization._batched_state_adapt(g, x, masks, world, map_reg=3.0)
+    for t in (bank.weights, bank.means, bank.cov_inv):
+        assert torch.isfinite(t).all()
+    assert torch.equal(bank.means[1], world.means)
+    _close(bank.weights[1], world.weights, 1e-6)
+    assert not torch.equal(bank.means[0], world.means)

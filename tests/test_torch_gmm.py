@@ -441,6 +441,16 @@ def test_port_imports_no_jax():
         "import lia_ral_tpu_torch.fa.topgauss\n"
         "import lia_ral_tpu_torch.tools.plda_tool\n"
         "import lia_ral_tpu_torch.tools.jfa_tools\n"
+        "import lia_ral_tpu_torch.seg, lia_ral_tpu_torch.seg.hmm\n"
+        "import lia_ral_tpu_torch.seg.clustering\n"
+        "import lia_ral_tpu_torch.seg.diarization\n"
+        "import lia_ral_tpu_torch.tools.spkseg_tools\n"
+        "import lia_ral_tpu_torch.frontend.mfcc\n"
+        "import lia_ral_tpu_torch.frontend.sdc\n"
+        "import lia_ral_tpu_torch.tools.spk_adapt\n"
+        "import lia_ral_tpu_torch.api, lia_ral_tpu_torch.api.spkdet\n"
+        "import lia_ral_tpu_torch.api.server\n"
+        "import lia_ral_tpu_torch.api.client\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"

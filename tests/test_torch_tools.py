@@ -567,7 +567,7 @@ def test_unported_modes_raise(extra):
 def test_main_dispatch(tmp_path, capsys):
     assert tmain.main([]) == 0
     assert "TrainWorld" in capsys.readouterr().out
-    assert tmain.main(["SpkAdapt"]) == 2
+    assert tmain.main(["Scoring"]) == 2         # a utility tool
     assert "not ported" in capsys.readouterr().err
     assert tmain.main(["NoSuchTool"]) == 2
     import importlib
@@ -582,7 +582,11 @@ def test_main_dispatch(tmp_path, capsys):
                       ("ComputeTVStats", "jfa_tools"),
                       ("EigenVoice", "jfa_tools"),
                       ("EigenChannel", "jfa_tools"),
-                      ("EstimateDMatrix", "jfa_tools")):
+                      ("EstimateDMatrix", "jfa_tools"),
+                      ("SpkAdapt", "spk_adapt"),
+                      ("TurnDetection", "spkseg_tools"),
+                      ("Segmentation", "spkseg_tools"),
+                      ("ReSegmentation", "spkseg_tools")):
         # the module and the preset mode key of the JAX package's table
         assert tmain.TOOLS[name] == jmain.TOOLS[name]
         assert tmain.TOOLS[name][0] == mod
