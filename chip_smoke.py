@@ -148,13 +148,47 @@ printed as it ends; any failure raises and the exit code is non-zero:
             8 kHz with a K=128 world (send_audio → MFCC + deltas →
             normalize_features → train, verify), and SpkAdapt on 10
             targets of phase 8 (WMAP, without and with online ZNORM).
+13. gmm-svm the GMM-supervector SVM system and the twenty LIA_Utils
+            tools, on phase 8's world (K=2048, D=39: supervectors of
+            79,872 dimensions), features, models and 8,000 main trials,
+            through ``python -m lia_ral_tpu_torch`` entry points
+            in-process: TrainTarget outputAdaptParam (KL supervectors of
+            the 250 training sessions and the 200 test segments, 3 K1
+            launches each) → CovIntra (rank 40, on the 250) → NAPSV (all
+            450) → SvmTrain (40 targets: 5 napped sessions against the 50
+            cohort vectors, N = 55, linear, default C; one launch of the
+            SVM dual kernel each) → SvmPredict (8,000 trials); ModelToSv
+            (meanSv, weightSv, normSv) on the 40 targets; TrainTarget NAP
+            (40 targets, K1), ComputeTest nap and dotProduct (napMatrix)
+            on the 8,000 trials, NormFeat featNAP on 50 files; then
+            Scoring (NIST, identification), FusionScore, ScoreWarp, Hist on
+            phase 8's score files, ReadModel, ReadFeatFile, ExtractParams
+            (10 files), PolyExp (50 files; computeR, normalize, default),
+            GmmTokenizer (symbols, confusion matrix), BNGram (orders 1-3),
+            LabelNGram, SequenceExtractor, SequenceDecode on the token
+            streams, LabelFusion and TimeCluster on phase 11's labels.
+            Checks each score file's trial count and finite scores, mean
+            target above mean impostor score for SVM, nap and dotProduct,
+            K1 and svm_dual launches per tool against the counts the loops
+            imply (one svm_dual launch a target), every tool's outputs,
+            and CovIntra's subspace, PolyExp (first 10 files), SvmPredict's
+            scores and GmmTokenizer's per-frame symbols against the same
+            tool run with ``torchDevice cpu`` within 1e-3 of scale.  Then
+            the SVM dual kernel against its plain loop (N = 55 from the
+            main path, linear, rbf, linear with targetPenalty; N = 1,001,
+            a synthetic background at d = 79,872, linear and rbf): α,
+            decisions, the dual objective, a rerun equal to the digit,
+            times (median of 3; the plain loop on the card once).  Prints
+            each tool's wall, K1 and svm_dual device ms and launches per
+            tool, the SVM, nap and dotProduct EERs.
 
 The line before the last is one JSON object of per-kernel results
-(``launches`` summed over the main paths of phases 6 and 8-12, by path in
+(``launches`` summed over the main paths of phases 6 and 8-13, by path in
 ``launches_by_path``; ``check_launches`` from the comparisons of phases
-3, 4, 7, 8 and 11; ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
-``library_ms`` from phase 7, the Viterbi kernel's from phase 11); the
-last line is {"ok": true, "device": {...}}.
+3, 4, 7, 8, 11 and 13; ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
+``library_ms`` from phase 7, the Viterbi kernel's from phase 11, the SVM
+dual kernel's from phase 13); the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -182,6 +216,7 @@ import lia_ral_tpu_torch  # noqa: F401  (numerics pin: TF32 off)
 from lia_ral_tpu_torch import _build
 from lia_ral_tpu_torch.__main__ import main as cli
 from lia_ral_tpu_torch.api import RemoteSpkDetClient, SpkDetServer
+from lia_ral_tpu_torch.backend import svm as tsvm
 from lia_ral_tpu_torch.backend.eval import der, eer
 from lia_ral_tpu_torch.backend.ivnorm import (DevSet, apply_efr,
                                               compute_cov_matrices,
@@ -464,7 +499,8 @@ def kernel_device_ms(totals):
     spans = []
     orig = {(tem, "em_stats_fused"): tem.em_stats_fused,
             (tstats, "bw_stats_fused"): tstats.bw_stats_fused,
-            (seg_hmm, "viterbi_cuda"): seg_hmm.viterbi_cuda}
+            (seg_hmm, "viterbi_cuda"): seg_hmm.viterbi_cuda,
+            (tsvm, "dual_solve_cuda"): tsvm.dual_solve_cuda}
 
     def timed(name, fn):
         def call(*args, **kwargs):
@@ -1482,11 +1518,12 @@ def check_viterbi(dev):
             "library_ms": None, "shapes": {"long_decode": times[60000]}}
 
 
-def run_diarization(kernels, dev) -> None:
+def run_diarization(kernels, dev):
     """Phase 11: the four LIA_SpkSeg tools at the milestone shape, K1's
     and the Viterbi kernel's launches and device ms per tool, SAD error,
     speakers found, DERs, a rerun; then the Viterbi kernel's own checks
-    and times."""
+    and times.  Returns the work directory and the speech frame count of
+    its label files (phase 13 reads them)."""
     d = temp_dir("lia_chip_smoke_diar_")
     x, ref, boots = gen_conversation(np.random.default_rng(20260823))
     n = ref.shape[0]
@@ -1670,6 +1707,7 @@ def run_diarization(kernels, dev) -> None:
                                      "backend": 0, "jfa": 0,
                                      "diarization": main_vit})
     kernels["viterbi"] = entry_v
+    return d, len(sp_idx)
 
 
 # -- phase 12: serving at full width -------------------------------------------
@@ -1930,6 +1968,513 @@ def run_serving(gu_dir, gu_lists, kernels, dev) -> None:
         got = launches.get(kname, 0)
         kv["launches_by_path"]["serving"] = got
         kv["launches"] += got
+
+
+# -- phase 13: the GMM-supervector SVM system and the utility tools -----------
+
+SVM_RANK = 40           # CovIntra's NAP rank
+SVM_BG = 1000           # synthetic background of the N = 1,001 kernel check
+SVM_TOL = 1e-3          # α (of max C), decisions and card-vs-CPU (of scale)
+SVM_OBJ_RTOL = 1e-4     # dual objective, kernel against the plain loop
+POLY_CPU_FILES = 10     # PolyExp's card-vs-CPU check reads the first 10
+SVM_SOURCE = "lia_ral_tpu_torch/csrc/svm_dual.cu"
+
+
+def svm_bound(n: int, n_iter: int = 500) -> tuple[float, str]:
+    """(bound ms, by) of one dual solve: the larger of the bytes (K once,
+    y and C in, α out) over the memory rate and the f32 operations (17 +
+    n_iter matvecs of 2N², and n_iter + 1 projections of 50 bisection
+    steps of 5 operations an element) over the f32 rate.  Both are
+    microseconds; the dependent chain that limits the solve is an
+    estimate in PERF.md."""
+    t_bytes = 4 * (n * n + 3 * n) / HBM_BYTES_PER_S
+    ops = ((tsvm.POWER_STEPS + 1 + n_iter) * 2 * n * n
+           + (n_iter + 1) * tsvm.BISECTION_STEPS * 5 * n)
+    t_ops = ops / F32_FLOPS_PER_S
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def dual_objective(k, y, alpha) -> float:
+    """Σα − ½ αᵀ(K∘yyᵀ)α in float64 on the CPU."""
+    k, y, a = (t.detach().cpu().double() for t in (k, y, alpha))
+    q = k * (y[:, None] * y[None, :])
+    return float(a.sum() - 0.5 * a @ q @ a)
+
+
+def check_svm_dual(x55, y55, dev):
+    """The SVM dual kernel against the plain loop on the main path's
+    problem (target spk00's 5 napped supervectors against the 50 cohort
+    vectors, N = 55, linear, default C; the plain loop on the card, timed
+    once), the same problem with an rbf kernel and with targetPenalty 10,
+    and a synthetic background of 1,000 vectors plus one target at d =
+    79,872 (N = 1,001), linear and rbf (the plain loop on the CPU: on the
+    card it is ~2·10⁵ launches, seconds a solve).  The background has a
+    32-dimensional latent structure under 0.3 of noise: i.i.d. Gaussian
+    vectors in 79,872 dimensions are all equidistant, and the rbf dual
+    over them is degenerate (α differed by 1.2e-2·C between two correct
+    solvers while the objective agreed to 2e-6).  rbf takes γ = 1/median
+    squared distance (the default 1/d makes K nearly constant here).  α
+    within SVM_TOL·max C and decisions K(α∘y) within SVM_TOL of their
+    scale; where the f32 loop does not determine them that closely (at
+    N = 1,001 rbf the plain loop moves α by ~1e-2·C when only its
+    element order is reversed, and by as much against the same loop in
+    float64: the default C puts α in the low bits of a ≈ lr), within
+    twice the distance between the plain loop and itself run in reversed
+    element order.  The dual objective within SVM_OBJ_RTOL, a rerun equal
+    to the digit; the kernel timed (median of 3, CUDA events) at both N.
+    Returns the kernels-line entry (without the launch counts)."""
+    rng = np.random.default_rng(13)
+    d = x55.shape[1]
+    basis = rng.standard_normal((32, d), dtype=np.float32) / np.float32(
+        np.sqrt(32))
+    xb = (rng.standard_normal((SVM_BG + 1, 32), dtype=np.float32) @ basis
+          + np.float32(0.3) * rng.standard_normal((SVM_BG + 1, d),
+                                                  dtype=np.float32))
+    xb[0] += np.float32(0.5) * basis[0]           # the target
+    xb = torch.from_numpy(xb).to(dev)
+    yb = torch.cat([torch.ones(1), -torch.ones(SVM_BG)]).to(dev)
+
+    def problem(x, y, kind, penalty=None):
+        c = tsvm.default_c(x.cpu().numpy())
+        c_vec = torch.full_like(y, c)
+        if penalty:
+            c_vec[y > 0] *= penalty
+        gamma = 0.0
+        if kind == "rbf":
+            sq = (x * x).sum(1)
+            d2 = sq[:, None] + sq[None, :] - 2.0 * x @ x.T
+            gamma = 1.0 / float(d2[d2 > 0].median())
+        return tsvm.kernel_matrix(x, x, kind, gamma=gamma), c_vec
+
+    cases = [("N=55 linear", x55, y55, "linear", None, True),
+             ("N=55 rbf", x55, y55, "rbf", None, False),
+             ("N=55 linear targetPenalty 10", x55, y55, "linear", 10.0, False),
+             (f"N={SVM_BG + 1} linear", xb, yb, "linear", None, False),
+             (f"N={SVM_BG + 1} rbf", xb, yb, "rbf", None, False)]
+    worst, times, plain_ms = 0.0, {}, None
+    for label, x, y, kind, penalty, on_card in cases:
+        k, c_vec = problem(x, y, kind, penalty)
+        got = tsvm.dual_solve_cuda(k, y, c_vec)
+        torch.cuda.synchronize()
+        again = tsvm.dual_solve_cuda(k, y, c_vec)
+        check(torch.equal(again, got), f"svm_dual {label}: a rerun "
+              "reproduces every digit")
+        if on_card:
+            t1 = time.perf_counter()
+            want = tsvm.dual_solve_reference(k, y, c_vec)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t1)
+        else:
+            want = tsvm.dual_solve_reference(k.cpu(), y.cpu(), c_vec.cpu())
+        want = want.to(dev)
+        c_max = float(c_vec.max())
+        da = float((got - want).abs().max())
+        dec_g, dec_w = k @ (got * y), k @ (want * y)
+        ddec = float((dec_g - dec_w).abs().max())
+        dscale = float(dec_w.abs().max())
+        og, ow = dual_objective(k, y, got), dual_objective(k, y, want)
+        tol_a, tol_dec = SVM_TOL * c_max, SVM_TOL * dscale
+        note = ""
+        if da > tol_a or ddec > tol_dec:
+            # the plain loop against itself in reversed element order
+            rev = tsvm.dual_solve_reference(
+                k.cpu().flip(0).flip(1), y.cpu().flip(0),
+                c_vec.cpu().flip(0)).flip(0).to(dev)
+            sa = float((rev - want).abs().max())
+            sdec = float((k @ (rev * y) - dec_w).abs().max())
+            tol_a, tol_dec = max(tol_a, 2 * sa), max(tol_dec, 2 * sdec)
+            note = (f"; the plain loop in reversed order moves α by "
+                    f"{sa / c_max:.2e} of C and decisions by {sdec:.3e}")
+        print(f"  svm_dual {label}: max|Δα| {da:.3e} ({da / c_max:.2e} of "
+              f"C), max|Δdecision| {ddec:.3e} (scale {dscale:.3e}), dual "
+              f"objective {og:.8e} vs plain {ow:.8e}; "
+              f"{int((got > 1e-8).sum())} support vectors{note}")
+        check(da <= tol_a and ddec <= tol_dec
+              and abs(og - ow) <= SVM_OBJ_RTOL * abs(ow),
+              f"svm_dual {label} agrees with the plain loop")
+        worst = max(worst, da)
+        if kind == "linear" and penalty is None:
+            ms = statistics.median(
+                cuda_ms(lambda: tsvm.dual_solve_cuda(k, y, c_vec))
+                for _ in range(3))
+            b_ms, b_by = svm_bound(x.shape[0])
+            times[x.shape[0]] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+            print(f"  svm_dual {label}: kernel {ms:.3f} ms (median of 3), "
+                  f"bound {b_ms:.2e} ms by {b_by}"
+                  + (f", plain loop on the card {plain_ms:.1f} ms (once)"
+                     if on_card else ""))
+        del k, got, again, want, dec_g, dec_w
+    return {"name": "svm_dual", "route": "cuda", "source": SVM_SOURCE,
+            "replaces": "lia_ral_tpu/backend/svm.py:61 (jax.jit lax.scan; "
+                        "no TPU kernel)",
+            "max_abs_err": worst, **times[x55.shape[0]], "plain_ms": plain_ms,
+            "library_ms": None,
+            "shapes": {f"N={SVM_BG + 1}": times[SVM_BG + 1]}}
+
+
+def principal_sin(a, b) -> float:
+    """‖P_a − P_b‖₂ of the row spaces of two orthonormal bases (the sin of
+    their largest principal angle) as the largest singular value of a −
+    (a·bᵀ)·b, linear in a perturbation (1 − σ_min(a·bᵀ)² would be
+    quadratic, and f32 orthonormality would swamp it); float64 on the
+    CPU, without the (d, d) projectors."""
+    a = torch.as_tensor(a, dtype=torch.float64)
+    b = torch.as_tensor(b, dtype=torch.float64)
+    return float(torch.linalg.matrix_norm(a - (a @ b.T) @ b, ord=2))
+
+
+def run_gmm_svm(gu_dir, gu_lists, diar_dir, diar_frames, kernels, dev):
+    """Phase 13: TrainTarget outputAdaptParam → CovIntra → NAPSV →
+    SvmTrain → SvmPredict, ModelToSv, TrainTarget NAP, ComputeTest nap and
+    dotProduct, NormFeat featNAP, then every other utility tool once, on
+    phase 8's world, features, models and trials and phase 11's labels;
+    launches and device ms per tool; card-vs-CPU checks of the numeric
+    tools; the SVM dual kernel against its plain loop."""
+    d = temp_dir("lia_chip_smoke_svm_")
+    dt = dev.type
+    half = UTT_PER_SPK // 2
+    spk = [f"spk{s:02d}" for s in range(N_SPK)]
+    tgt, coh = spk[:N_TGT], spk[N_TGT:]
+    train = [f"{s}_u{j}" for s in spk for j in range(half)]
+    tests = [f"{s}_u{j}" for s in tgt for j in range(half, UTT_PER_SPK)]
+    poly = [n for (n,) in read_xlist(gu_lists["warp"])]      # 50 files
+
+    def nap(n):
+        return n + ".napped"
+
+    lst = {}
+
+    def write_list(name, rows):
+        lst[name] = os.path.join(d, name)
+        write_xlist(lst[name], rows)
+
+    write_list("sessions.ndx", [[n, n] for n in train + tests])
+    write_list("spk.ndx", [[f"{s}_u{j}" for j in range(half)] for s in spk])
+    write_list("vectors.lst", [[n] for n in train + tests])
+    write_list("cohort.lst", [[nap(f"{s}_u{j}")] for s in coh
+                              for j in range(half)])
+    write_list("svm_targets.ndx", [[s] + [nap(f"{s}_u{j}")
+                                          for j in range(half)] for s in tgt])
+    write_list("svm_trials.ndx", [[nap(t)] + tgt for t in tests])
+    write_list("targets.ndx", [[s] + [f"{s}_u{j}" for j in range(half)]
+                               for s in tgt])
+    write_list("target_models.lst", [[s] for s in tgt])
+    write_list("ten.lst", [[n] for n in poly[:10]])
+    write_list("poly.lst", [[n] for n in poly])
+    write_list("fuse.lst", [[os.path.join(gu_dir, "main.nist")],
+                            [os.path.join(gu_dir, "ztnorm.nist")]])
+    write_list("seq_train.ndx", [["A"] + [os.path.join(d, n + ".sym")
+                                          for n in poly[:5]],
+                                 ["B"] + [os.path.join(d, n + ".sym")
+                                          for n in poly[5:10]]])
+    write_list("seq_test.lst", [[os.path.join(d, n + ".sym")]
+                                for n in poly[10:14]])
+    write_list("labels.lst", [[os.path.join(diar_dir, f"convsp.{e}.lbl")]
+                              for e in ("seg", "reseg")])
+    with open(os.path.join(d, "weights.txt"), "w") as f:
+        f.write("0.5 0.5\n")
+    feat = gmm_ubm_args(gu_dir, dt)
+    vec = ["--torchDevice", dt, "--vectorFilesPath", d + "/",
+           "--vectorFilesExtension", ".vect"]
+    mapk = ["--inputWorldFilename", "wld", "--MAPAlgo", "MAPOccDep",
+            "--meanAdapt", "true", "--MAPRegFactorMean", "14",
+            "--nbTrainIt", "3"]
+    napm = os.path.join(d, "nap.mat")
+    main_nist = os.path.join(gu_dir, "main.nist")
+    first = poly[0]
+    steps = [
+        ("TrainTarget[outputAdaptParam]", "TrainTarget", feat + mapk + [
+            "--targetIdList", lst["sessions.ndx"], "--outputAdaptParam",
+            "true", "--superVector", "KL", "--saveVectorFilesPath", d + "/"]),
+        ("CovIntra", "CovIntra", vec + [
+            "--ndx", lst["spk.ndx"], "--nbEigenVectors", str(SVM_RANK),
+            "--channelMatrix", napm]),
+        ("NAPSV", "NAPSV", vec + ["--napMatrix", napm,
+                                  "--inputVectorList", lst["vectors.lst"]]),
+        ("SvmTrain", "SvmTrain", vec + [
+            "--backgroundList", lst["cohort.lst"],
+            "--targetIdList", lst["svm_targets.ndx"], "--kernelType", "0"]),
+        ("SvmPredict", "SvmPredict", vec + [
+            "--ndxFilename", lst["svm_trials.ndx"],
+            "--outputFilename", os.path.join(d, "svm.nist")]),
+        ("ModelToSv[meanSv]", "ModelToSv", [
+            "--mixtureFilesPath", gu_dir + "/", "--vectorFilesPath", d + "/",
+            "--inputModelList", lst["target_models.lst"],
+            "--inputWorldFilename", "wld", "--meanSv", "true",
+            "--normSv", "true", "--vectorFilesExtension", ".msv"]),
+        ("ModelToSv[weightSv]", "ModelToSv", [
+            "--mixtureFilesPath", gu_dir + "/", "--vectorFilesPath", d + "/",
+            "--inputModelList", lst["target_models.lst"],
+            "--inputWorldFilename", "wld", "--weightSv", "true",
+            "--normSv", "true", "--vectorFilesExtension", ".wsv"]),
+        ("TrainTarget[NAP]", "TrainTarget", feat + mapk + [
+            "--targetIdList", lst["targets.ndx"], "--NAP", "true",
+            "--NAPChannelMatrix", napm,
+            "--saveMixtureFileExtension", ".nap.gmm"]),
+        ("ComputeTest[nap]", "ComputeTest", feat + [
+            "--computeTestMode", "nap", "--napMatrix", napm,
+            "--ndxFilename", gu_lists["main"], "--inputWorldFilename", "wld",
+            "--topDistribsCount", "10",
+            "--outputFilename", os.path.join(d, "nap.nist")]),
+        ("ComputeTest[dotProduct]", "ComputeTest", feat + [
+            "--computeTestMode", "dotProduct", "--napMatrix", napm,
+            "--ndxFilename", gu_lists["main"], "--inputWorldFilename", "wld",
+            "--outputFilename", os.path.join(d, "dot.nist")]),
+        ("NormFeat[featNAP]", "NormFeat", feat + [
+            "--mode", "featNAP", "--inputFeatureFilename", lst["poly.lst"],
+            "--inputWorldFilename", "wld", "--initChannelMatrix", napm,
+            "--saveFeatureFileExtension", ".nap.prm"]),
+        ("Scoring[NIST]", "Scoring", [
+            "--inputFile", main_nist, "--mode", "NIST", "--threshold", "0",
+            "--segTypeTest", "1side", "--trainTypeTest", "1side",
+            "--adaptationMode", "n",
+            "--outputFile", os.path.join(d, "scoring.nist04")]),
+        ("Scoring[identification]", "Scoring", [
+            "--inputFile", main_nist, "--scoringMode", "identification",
+            "--outputFile", os.path.join(d, "ident.nist")]),
+        ("FusionScore", "FusionScore", [
+            "--inputFileList", lst["fuse.lst"],
+            "--weights", os.path.join(d, "weights.txt"),
+            "--outputFile", os.path.join(d, "fused.nist")]),
+        ("ScoreWarp", "ScoreWarp", [
+            "--inputFile", main_nist,
+            "--outputFile", os.path.join(d, "warped.nist")]),
+        ("Hist", "Hist", ["--inputFile", main_nist, "--nbBins", "50",
+                          "--outputFile", os.path.join(d, "main.hist")]),
+        ("ReadModel", "ReadModel", ["--mixtureFilesPath", gu_dir + "/",
+                                    "--inputModelFilename", "wld"]),
+        ("ReadFeatFile", "ReadFeatFile", [
+            "--inputFeatureFilename",
+            os.path.join(gu_dir, first + ".norm.prm")]),
+        ("ExtractParams", "ExtractParams", feat + [
+            "--inputFeatureFilename", lst["ten.lst"],
+            "--featureServerMask", "0-12",
+            "--saveFeatureFileExtension", ".ext.prm"]),
+        ("PolyExp[computeR]", "PolyExp", feat + [
+            "--inputFeatureFilename", lst["poly.lst"],
+            "--computeR", os.path.join(d, "poly.R")]),
+        ("PolyExp[normalize]", "PolyExp", feat + [
+            "--inputFeatureFilename", lst["poly.lst"],
+            "--normalize", os.path.join(d, "poly.R"),
+            "--vectorFilesPath", d + "/",
+            "--vectorFilesExtension", ".nexp.vect"]),
+        ("PolyExp", "PolyExp", feat + [
+            "--inputFeatureFilename", lst["poly.lst"],
+            "--vectorFilesPath", d + "/"]),
+        ("GmmTokenizer", "GmmTokenizer", feat + [
+            "--inputFeatureFilename", lst["poly.lst"],
+            "--inputWorldFilename", "wld", "--symbolsFilesPath", d + "/"]),
+        ("GmmTokenizer[confusion]", "GmmTokenizer", feat + [
+            "--inputFeatureFilename", lst["poly.lst"],
+            "--inputWorldFilename", "wld", "--confusionMatrix", "true",
+            "--topDistribsCount", "10",
+            "--matrixOutputName", os.path.join(d, "mce.mat")]),
+    ] + [(f"BNGram[{o}]", "BNGram", [
+        "--inputSymFile", os.path.join(d, first + ".sym"),
+        "--ngramOrder", str(o),
+        "--outputFile", os.path.join(d, f"ngram{o}.dta")]) for o in (1, 2, 3)
+    ] + [
+        ("LabelNGram", "LabelNGram", [
+            "--inputFilename", first,
+            "--NGramFilename", os.path.join(d, "ngram3.dta"),
+            "--NGramOrder", "3", "--NGramSelected", "16",
+            "--symbolPath", d + "/", "--labelOutputPath", d + "/"]),
+        ("SequenceExtractor", "SequenceExtractor", [
+            "--ngramFilename", os.path.join(d, "ngram"), "--ngramExt", ".dta",
+            "--maxOrder", "3", "--nbInputSymb", str(K), "--nbOutputSymb",
+            "64", "--outputFilename", os.path.join(d, "seq.dec"),
+            "--outputInfoFilename", os.path.join(d, "seq.info")]),
+        ("SequenceDecode", "SequenceDecode", [
+            "--trainList", lst["seq_train.ndx"],
+            "--testList", lst["seq_test.lst"], "--ngramOrder", "2"]),
+        ("LabelFusion", "LabelFusion", [
+            "--labelFileList", lst["labels.lst"],
+            "--nbFrames", str(diar_frames), "--closeGap", "50",
+            "--dropShort", "30",
+            "--outputFile", os.path.join(d, "fused.lbl")]),
+        ("TimeCluster", "TimeCluster", [
+            "--inputFile", os.path.join(diar_dir, "convsp.seg.lbl"),
+            "--minDuration", "1.0",
+            "--outputFile", os.path.join(d, "timecluster.lbl")]),
+    ]
+    walls, k_ms, launches, stdout = {}, {}, {}, {}
+    ck.reset_launch_counts()
+    tsvm.reset_launch_counts()
+    seg_hmm.reset_launch_counts()
+    for label, tool, args in steps:
+        k1, sv = ck.launch_counts["em_stats_fused"], \
+            tsvm.launch_counts["svm_dual"]
+        kms = {}
+        walls[label], stdout[label] = run_tool(tool, args, kms, dt)
+        k_ms[label] = (kms.get("em_stats_fused", 0.0),
+                       kms.get("dual_solve_cuda", 0.0))
+        launches[label] = (ck.launch_counts["em_stats_fused"] - k1,
+                           tsvm.launch_counts["svm_dual"] - sv)
+    main = {**ck.launch_counts, **seg_hmm.launch_counts,
+            **tsvm.launch_counts}
+    print("  gmm-svm: tool wall s " + ", ".join(
+        f"{k} {v:.3f}" for k, v in walls.items()))
+    print("  gmm-svm: K1 launches (device ms) / svm_dual launches (device "
+          "ms) " + ", ".join(
+              f"{k} {launches[k][0]} ({k_ms[k][0]:.2f}) / {launches[k][1]} "
+              f"({k_ms[k][1]:.2f})" for k in walls if any(launches[k])))
+    print(f"  gmm-svm: launches {main}")
+    want = {label: (0, 0) for label in walls}
+    want.update({"TrainTarget[outputAdaptParam]": (3 * (len(train)
+                                                        + len(tests)), 0),
+                 "TrainTarget[NAP]": (3 * N_TGT, 0),
+                 "SvmTrain": (0, N_TGT)})
+    for label, counts in want.items():
+        check(launches[label] == counts, f"{label}: (K1, svm_dual) launches "
+              f"{launches[label]}, expected {counts}")
+    check(all(v == 0 for k, v in main.items()
+              if k not in ("em_stats_fused", "svm_dual")),
+          "only the default K1 and svm_dual on the gmm-svm path")
+
+    # the outputs of the chain
+    n_dim = K * D
+    nap_u = read_matrix_file(napm)
+    check(nap_u.shape == (SVM_RANK, n_dim) and np.allclose(
+        nap_u @ nap_u.T, np.eye(SVM_RANK), atol=1e-4),
+        f"CovIntra: {SVM_RANK} orthonormal rows of {n_dim}")
+    for n in train + tests:
+        v = read_matrix_file(os.path.join(d, nap(n) + ".vect"))
+        check(v.shape == (1, n_dim) and bool(np.isfinite(v).all()),
+              f"NAPSV output {n}")
+    check(float(np.abs(nap_u @ v.ravel()).max())
+          <= 1e-4 * float(np.abs(v).max()) * np.sqrt(n_dim),
+          "NAPSV leaves nothing along the NAP subspace")
+    for s in tgt:
+        for ext, size in ((".msv", n_dim), (".wsv", K)):
+            v = read_matrix_file(os.path.join(d, s + ext))
+            check(v.shape == (1, size) and bool(np.isfinite(v).all()),
+                  f"ModelToSv {s}{ext}")
+        m = GmmDiag.load(os.path.join(gu_dir, s + ".nap.gmm"))
+        sv = m.means.reshape(-1).double().numpy()
+        check(bool(np.isfinite(sv).all())
+              and float(np.abs(nap_u @ sv).max()) <= 1e-3 * np.abs(sv).max()
+              * np.sqrt(n_dim), f"TrainTarget NAP model {s}")
+    for n in poly:
+        y = read_feature_file(os.path.join(gu_dir, n + ".nap.prm")).data
+        check(y.shape == (T_UTT, D) and bool(np.isfinite(y).all()),
+              f"featNAP output {n}")
+    eers = {}
+    for name in ("svm", "nap", "dot"):
+        sc, is_tgt = trial_scores(os.path.join(d, name + ".nist"),
+                                  N_TGT * N_TGT * 5)
+        check(int(is_tgt.sum()) == N_TGT * 5, f"{name}: 200 target trials")
+        eers[name] = 100 * eer(sc[is_tgt], sc[~is_tgt])
+        print(f"  gmm-svm [{name}]: mean target score "
+              f"{sc[is_tgt].mean():.6g}, impostor {sc[~is_tgt].mean():.6g}; "
+              f"EER {eers[name]:.2f} % over {is_tgt.sum()} target / "
+              f"{(~is_tgt).sum()} impostor trials")
+        check(sc[is_tgt].mean() > sc[~is_tgt].mean(),
+              f"{name}: mean target score above mean impostor score")
+    # the other tools' outputs
+    for name, n in (("ident.nist", 200), ("fused.nist", 8000),
+                    ("warped.nist", 8000)):
+        lines = read_nist_scores(os.path.join(d, name))
+        check(len(lines) == n and all(np.isfinite(r.score) for r in lines),
+              f"{name}: {n} finite scores")
+    with open(os.path.join(d, "scoring.nist04")) as f:
+        check(len(f.read().splitlines()) == 8000, "Scoring NIST: 8000 lines")
+    with open(os.path.join(d, "main.hist")) as f:
+        check(len(f.read().splitlines()) == 50, "Hist: 50 bins")
+    check(len(stdout["ReadModel"].splitlines()) == 1 + 3 * K,
+          "ReadModel prints every component")
+    check(len(stdout["ReadFeatFile"].splitlines()) == T_UTT,
+          "ReadFeatFile prints every frame")
+    for n in poly[:10]:
+        check(read_feature_file(os.path.join(gu_dir, n + ".ext.prm")).data
+              .shape == (T_UTT, 13), f"ExtractParams output {n}")
+    r_rows = np.loadtxt(os.path.join(d, "poly.R"))
+    n_poly = (D + 3) * (D + 2) * (D + 1) // 6
+    check(r_rows.shape == (n_poly, 2) and bool(np.isfinite(r_rows).all()),
+          f"PolyExp computeR: {n_poly} rows")
+    for ext in (".exp.vect", ".nexp.vect"):
+        v = read_matrix_file(os.path.join(d, first + ext))
+        check(v.shape == (1, n_poly) and bool(np.isfinite(v).all()),
+              f"PolyExp output {first}{ext}")
+    mce = np.loadtxt(os.path.join(d, "mce.mat"), skiprows=1)
+    check(mce.shape == (K, K) and mce.sum() > 0, "GmmTokenizer confusion "
+          "matrix")
+    for name in ("seq.dec", "seq.info", "ngram3.dta", first + ".sym.lbl",
+                 "fused.lbl", "timecluster.lbl"):
+        check(os.path.getsize(os.path.join(d, name)) > 0, f"{name} written")
+    check(len(stdout["SequenceDecode"].splitlines()) == 4,
+          "SequenceDecode decodes 4 streams")
+
+    # card against the CPU on the same files: CovIntra, PolyExp,
+    # SvmPredict, GmmTokenizer (per-frame symbols)
+    cpu = ["--torchDevice", "cpu"]
+    run_tool("CovIntra", vec + cpu + [
+        "--ndx", lst["spk.ndx"], "--nbEigenVectors", str(SVM_RANK),
+        "--channelMatrix", os.path.join(d, "nap_cpu.mat")], {}, "cpu")
+    sin_max = principal_sin(nap_u, read_matrix_file(
+        os.path.join(d, "nap_cpu.mat")))
+    print(f"  gmm-svm: CovIntra card vs CPU: ‖P_card − P_cpu‖₂ {sin_max:.3e}")
+    check(sin_max <= SVM_TOL, "CovIntra's subspace on the card and the CPU")
+    run_tool("PolyExp", feat + cpu + [
+        "--inputFeatureFilename", lst["ten.lst"], "--vectorFilesPath",
+        d + "/", "--vectorFilesExtension", ".exp.cpu.vect"], {}, "cpu")
+    worst = 0.0
+    for n in poly[:POLY_CPU_FILES]:
+        a = read_matrix_file(os.path.join(d, n + ".exp.vect"))
+        b = read_matrix_file(os.path.join(d, n + ".exp.cpu.vect"))
+        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+    print(f"  gmm-svm: PolyExp card vs CPU ({POLY_CPU_FILES} files): max "
+          f"|Δ| {worst:.3e} of scale")
+    check(worst <= SVM_TOL, "PolyExp on the card and the CPU")
+    run_tool("SvmPredict", vec + cpu + [
+        "--ndxFilename", lst["svm_trials.ndx"],
+        "--outputFilename", os.path.join(d, "svm_cpu.nist")], {}, "cpu")
+    a = np.array([r.score for r in read_nist_scores(os.path.join(
+        d, "svm.nist"))])
+    b = np.array([r.score for r in read_nist_scores(os.path.join(
+        d, "svm_cpu.nist"))])
+    err = float(np.abs(a - b).max() / np.abs(b).max())
+    print(f"  gmm-svm: SvmPredict card vs CPU: max |Δ| {err:.3e} of scale")
+    check(err <= SVM_TOL, "SvmPredict on the card and the CPU")
+    frames = {}
+    for label, dev_args in (("card", ["--torchDevice", dt]), ("cpu", cpu)):
+        out = os.path.join(d, "tok_" + label)
+        os.makedirs(out)
+        run_tool("GmmTokenizer", feat + dev_args + [
+            "--inputFeatureFilename", lst["poly.lst"],
+            "--inputWorldFilename", "wld", "--duration", "true",
+            "--symbolsFilesPath", out + "/"], {}, dev_args[1])
+        frames[label] = np.concatenate([
+            np.loadtxt(os.path.join(out, n + ".sym"), dtype=np.int64)
+            for n in poly])
+    flips = int((frames["card"] != frames["cpu"]).sum())
+    print(f"  gmm-svm: GmmTokenizer card vs CPU: {flips} of "
+          f"{frames['cpu'].size} frames' symbols differ")
+    check(flips <= SVM_TOL * frames["cpu"].size,
+          "GmmTokenizer's symbols on the card and the CPU")
+
+    # the kernel against its plain loop, on the main path's problem of
+    # target spk00 and at N = 1,001
+    vecs = [read_matrix_file(os.path.join(d, nap(f"{s}_u{j}") + ".vect"))
+            .ravel() for s in [tgt[0]] + coh for j in range(half)]
+    x55 = torch.as_tensor(np.stack(vecs), dtype=torch.float32, device=dev)
+    y55 = torch.cat([torch.ones(half), -torch.ones(len(coh) * half)]).to(dev)
+    before = tsvm.launch_counts["svm_dual"]
+    entry_s = check_svm_dual(x55, y55, dev)
+    paths = ("cli-ivector", "gmm-ubm", "backend", "jfa", "diarization",
+             "serving")
+    entry_s.update(launches=main["svm_dual"],
+                   check_launches=tsvm.launch_counts["svm_dual"] - before,
+                   launches_by_path={**{p: 0 for p in paths},
+                                     "gmm-svm": main["svm_dual"]})
+    for kname, kv in kernels.items():
+        got = main.get(kname, 0)
+        kv["launches_by_path"]["gmm-svm"] = got
+        kv["launches"] += got
+    kernels["svm_dual"] = entry_s
+    print(f"  gmm-svm: EER SVM {eers['svm']:.2f} %, NAP {eers['nap']:.2f} %, "
+          f"dotProduct {eers['dot']:.2f} %")
 
 
 def cuda_ms(fn) -> float:
@@ -2336,13 +2881,19 @@ def main() -> int:
 
     # 11. diarization at the milestone shape, and the Viterbi kernel
     t0 = time.perf_counter()
-    run_diarization(kernels, dev)
+    diar_dir, diar_frames = run_diarization(kernels, dev)
     phase("diar", t0)
 
     # 12. the serving API at full width, the audio path, SpkAdapt
     t0 = time.perf_counter()
     run_serving(gu_dir, gu_lists, kernels, dev)
     phase("serving", t0)
+
+    # 13. the GMM-supervector SVM system and the other utility tools, on
+    # phase 8's world, features, models and trials; the SVM dual kernel
+    t0 = time.perf_counter()
+    run_gmm_svm(gu_dir, gu_lists, diar_dir, diar_frames, kernels, dev)
+    phase("gmm-svm", t0)
 
     print(smi[0])
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -4,8 +4,8 @@ The JAX package ``lia_ral_tpu`` stays the reference; each module here
 mirrors one module there and is tested against it on the same inputs.
 The port imports torch and numpy only, never jax, flax or lia_ral_tpu.
 
-Ported so far (the GMM-UBM system and the GMM-UBM -> Baum-Welch ->
-i-vector slice, with their CLI tools under ``tools``):
+Ported (every tool of the JAX package under ``tools``; among the
+modules):
 
 - ``gmm.model``        GmmDiag
 - ``gmm.kernels``      EmStats, log-densities, posteriors, plain EM stats
@@ -20,6 +20,11 @@ i-vector slice, with their CLI tools under ``tools``):
 - ``fa.tv``            TotalVariability model, exact i-vector extraction
 - ``backend.scoring``  cosine scoring; ``backend.eval`` EER / minDCF;
                        ``backend.norm`` z/t/zt/tz-norm
+- ``backend.supervector``, ``backend.svm``
+                       GMM supervectors and NAP; the C-SVC, its dual
+                       solver a CUDA kernel of the port's own
+- ``utils``            score, label, n-gram, expansion and token utilities
+                       of the LIA_Utils tools
 - ``convert``          JAX-package parameters (as numpy) <-> port state
 
 Every function takes its device from its input tensors; the package never

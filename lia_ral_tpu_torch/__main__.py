@@ -2,26 +2,26 @@
 (port of lia_ral_tpu/__main__.py).
 
 The tool names are the reference binaries' (and the JAX package's
-``TOOLS``); tools that share a module (EigenVoice → jfa_tools, ...) get
-their mode key preset.  The port runs the GMM-UBM chain EnergyDetector →
-NormFeat → TrainWorld → TrainTarget → ComputeTest → ComputeNorm, the
-i-vector chain TrainWorld → TotalVariability → IvExtractor → IvNorm →
-PLDA → IvTest, the JFA chain ComputeJFAStats → EigenVoice →
-EigenChannel → EstimateDMatrix, the diarization chain
-AcousticSegmentation → TurnDetection → Segmentation → ReSegmentation,
-SpkAdapt, and SpkDetServer (the TCP server of ``api/server``, config key
-``port``); the utility tools (Scoring … SvmPredict) print that they are
-not ported yet and exit 2.  Config key ``torchDevice`` (default ``cuda``)
-names the device.
+``TOOLS``); tools that share a module (EigenVoice → jfa_tools, Svm →
+utils_tools, ...) get their mode key preset.  Every tool of the JAX
+package runs: the GMM-UBM chain EnergyDetector → NormFeat → TrainWorld →
+TrainTarget → ComputeTest → ComputeNorm, the i-vector chain TrainWorld →
+TotalVariability → IvExtractor → IvNorm → PLDA → IvTest, the JFA chain
+ComputeJFAStats → EigenVoice → EigenChannel → EstimateDMatrix, the
+diarization chain AcousticSegmentation → TurnDetection → Segmentation →
+ReSegmentation, SpkAdapt, SpkDetServer (the TCP server of ``api/server``,
+config key ``port``) and the twenty LIA_Utils tools (Scoring …
+SvmPredict, ``tools/utils_tools``), among them the GMM-supervector SVM
+chain CovIntra → NAPSV → SvmTrain → SvmPredict.  Config key
+``torchDevice`` (default ``cuda``) names the device.
 """
 
 from __future__ import annotations
 
 import sys
 
-# tool name → (module under tools/, {preset config keys}), or None for a
-# tool that is not ported yet
-TOOLS: dict[str, tuple[str, dict[str, str]] | None] = {
+# tool name → (module under tools/, {preset config keys})
+TOOLS: dict[str, tuple[str, dict[str, str]]] = {
     "NormFeat": ("norm_feat", {}),
     "EnergyDetector": ("energy_detector", {}),
     "TrainWorld": ("train_world", {}),
@@ -46,13 +46,28 @@ TOOLS: dict[str, tuple[str, dict[str, str]] | None] = {
     "TurnDetection": ("spkseg_tools", {"segMode": "turnDetection"}),
     "Segmentation": ("spkseg_tools", {"segMode": "segmentation"}),
     "ReSegmentation": ("spkseg_tools", {"segMode": "resegmentation"}),
+    # LIA_Utils binaries → utils_tools modes
+    "Scoring": ("utils_tools", {"utilMode": "scoring"}),
+    "FusionScore": ("utils_tools", {"utilMode": "fusion"}),
+    "ScoreWarp": ("utils_tools", {"utilMode": "scoreWarp"}),
+    "Hist": ("utils_tools", {"utilMode": "hist"}),
+    "ModelToSv": ("utils_tools", {"utilMode": "modelToSv"}),
+    "NAPSV": ("utils_tools", {"utilMode": "napSv"}),
+    "CovIntra": ("utils_tools", {"utilMode": "covIntra"}),
+    "ReadFeatFile": ("utils_tools", {"utilMode": "readFeatFile"}),
+    "ReadModel": ("utils_tools", {"utilMode": "readModel"}),
+    "ExtractParams": ("utils_tools", {"utilMode": "extractParams"}),
+    "PolyExp": ("utils_tools", {"utilMode": "polyExp"}),
+    "GmmTokenizer": ("utils_tools", {"utilMode": "gmmTokenizer"}),
+    "BNGram": ("utils_tools", {"utilMode": "bNgram"}),
+    "LabelNGram": ("utils_tools", {"utilMode": "labelNgram"}),
+    "SequenceDecode": ("utils_tools", {"utilMode": "sequenceDecode"}),
+    "SequenceExtractor": ("utils_tools", {"utilMode": "sequenceExtract"}),
+    "LabelFusion": ("utils_tools", {"utilMode": "labelFusion"}),
+    "TimeCluster": ("utils_tools", {"utilMode": "timeCluster"}),
+    "SvmTrain": ("utils_tools", {"utilMode": "svmTrain"}),
+    "SvmPredict": ("utils_tools", {"utilMode": "svmPredict"}),
     "SpkDetServer": ("", {}),           # api/server, handled in main()
-    **{name: None for name in (
-        "Scoring", "FusionScore", "ScoreWarp", "Hist",
-        "ModelToSv", "NAPSV", "CovIntra", "ReadFeatFile", "ReadModel",
-        "ExtractParams", "PolyExp", "GmmTokenizer", "BNGram", "LabelNGram",
-        "SequenceDecode", "SequenceExtractor", "LabelFusion",
-        "TimeCluster", "SvmTrain", "SvmPredict")},
 }
 
 
@@ -63,12 +78,9 @@ def main(argv: list[str] | None = None) -> int:
         print("usage: python -m lia_ral_tpu_torch <Tool> [--config FILE] "
               "[--key value ...] [--torchDevice cuda|cpu]\n\n"
               "tools (reference binary names):")
-        for name, tool in sorted(TOOLS.items()):
-            if tool is None:
-                print(f"  {name:<{width}}  -> not ported yet")
-                continue
-            mode = next(iter(tool[1].values()), "")
-            target = f"tools/{tool[0]}" if tool[0] else "api/server"
+        for name, (mod, preset) in sorted(TOOLS.items()):
+            mode = next(iter(preset.values()), "")
+            target = f"tools/{mod}" if mod else "api/server"
             print(f"  {name:<{width}}  -> {target}"
                   + (f" [{mode}]" if mode else ""))
         return 0
@@ -76,12 +88,6 @@ def main(argv: list[str] | None = None) -> int:
     if name not in TOOLS:
         print(f"unknown tool {name!r} — run with no arguments for the list",
               file=sys.stderr)
-        return 2
-    if TOOLS[name] is None:
-        print(f"tool {name} is not ported to lia_ral_tpu_torch yet "
-              "(a utility tool of ROADMAP.md queue 1, item 13); the JAX "
-              "package runs it: "
-              f"python -m lia_ral_tpu {name}", file=sys.stderr)
         return 2
     import importlib
 

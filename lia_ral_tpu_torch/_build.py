@@ -25,9 +25,12 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 SOURCE = _CSRC / "gmm_stats_wgmma.cu"         # K1 and K2
-# library name → source; "viterbi" is the diarization decoder
-SOURCES = {"gmm_stats": SOURCE, "viterbi": _CSRC / "viterbi.cu"}
-_HEADERS = {"gmm_stats": (_CSRC / "wgmma_ops.cuh",), "viterbi": ()}
+# library name → source; "viterbi" is the diarization decoder, "svm_dual"
+# the SVM trainer's dual solver
+SOURCES = {"gmm_stats": SOURCE, "viterbi": _CSRC / "viterbi.cu",
+           "svm_dual": _CSRC / "svm_dual.cu"}
+_HEADERS = {"gmm_stats": (_CSRC / "wgmma_ops.cuh",), "viterbi": (),
+            "svm_dual": ()}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -92,9 +95,12 @@ def _bind(name: str, lib) -> None:
         lib.lia_bw_stats_wgmma.argtypes = [p, p, p, p, p, i, i, i, i, i,
                                            p, p, p]
         lib.lia_bw_stats_wgmma.restype = i
-    else:
+    elif name == "viterbi":
         lib.lia_viterbi.argtypes = [p, p, ll, i, f, p, p, p]
         lib.lia_viterbi.restype = i
+    else:
+        lib.lia_svm_dual.argtypes = [p, p, p, p, i, i, i, p]
+        lib.lia_svm_dual.restype = i
 
 
 def library(name: str = "gmm_stats"):

@@ -199,18 +199,6 @@ def setup_verbose(cfg: Config) -> bool:
     return cfg.get_bool("verbose", False)
 
 
-def not_ported(what: str, item: int) -> NotImplementedError:
-    """The error a tool raises for a mode the port does not run yet,
-    naming the ROADMAP queue-1 item that will bring it.  (The port runs
-    the GMM-UBM, i-vector, JFA/LFA, diarization, SpkAdapt and serving
-    chains; what is left are the supervector / NAP / SVM modes and the
-    utility tools of item 13.)"""
-    return NotImplementedError(
-        f"{what} is not ported to lia_ral_tpu_torch yet; the GMM-UBM, "
-        "i-vector, JFA/LFA, diarization, SpkAdapt and serving chains run "
-        f"(ROADMAP queue 1, item {item})")
-
-
 def resolve_stats_fn(cfg: Config):
     """The EM stats pass the config asks for: ``fastMath``/``fastStats``
     pick the kernels' tiers (``gmm.em.default_stats_fn``); None (the

@@ -12,9 +12,13 @@ Equivalent of reference ``LIA_SpkDet/ComputeTest`` (ComputeTestMain.cpp:
   estimated on its stats, world and clients are shifted by U·x, then
   top-K LLR;
 * byLabel (cpp:916): one score per label cluster of the test file;
-* histo (cpp:1031): per-frame LLR histogram → entropy or robust mean.
+* histo (cpp:1031): per-frame LLR histogram → entropy or robust mean;
+* dotProduct (cpp:228): <Σ⁻¹·(sv_client − sv_world), F̄_test>/frames,
+  optional NAP (``napMatrix``) of the client offset;
+* nap (cpp:767): NAP of the client mean supervectors, then top-K LLR.
 
-``dotProduct`` and ``nap`` (supervectors) are not ported yet.
+In both supervector modes the test stats are the plain
+``accumulate_bw_stats`` (as in the JAX package), not kernel K2.
 
 Plain-mode lines with the same client set and frame bucket score as one
 batch (``compute_test_llr_batch``); each result carries its NDX line
@@ -29,6 +33,8 @@ import sys
 import numpy as np
 import torch
 
+from ..backend.supervector import (compute_nap, model_to_sv,
+                                   project_on_subspace)
 from ..backend.unsupervised import windowed_llr
 from ..config import Config
 from ..fa.jfa import JfaModel
@@ -46,10 +52,8 @@ from ..io.matrix import read_matrix_file
 from ..io.nist import ScoreLine, read_nist_scores, write_nist_scores
 from ..utils.shapes import FRAME_BUCKET, bucket_len, next_pow2
 from .common import (label_path, load_features_and_mask, mixture_path,
-                     not_ported, resolve_device, setup_verbose)
+                     resolve_device, setup_verbose)
 from .total_variability import matrix_out_path
-
-_NOT_PORTED = {"dotProduct": 13, "nap": 13}
 
 
 def _pad_frames(x: np.ndarray, w: np.ndarray | None = None,
@@ -135,8 +139,10 @@ def _flush_plain_group(key, rows, group_clients, world, top_k, gender,
 
 def main(cfg: Config) -> list[ScoreLine]:
     mode = cfg.get_str("computeTestMode", "plain")
-    if mode in _NOT_PORTED:
-        raise not_ported(f"computeTestMode={mode}", _NOT_PORTED[mode])
+    if mode == "dotProduct":
+        return dot_product_main(cfg)
+    if mode == "nap":
+        return nap_main(cfg)
     if mode in ("jfa", "lfa"):
         return channel_comp_main(cfg, lfa=(mode == "lfa"))
     if mode == "byLabel":
@@ -335,6 +341,73 @@ def channel_comp_main(cfg: Config, lfa: bool) -> list[ScoreLine]:
         llr = compute_test_llr(
             x, w, compensate_model(world, model, x_h), stack_gmms(clients),
             top_k=min(top_k, world.n_components))
+        for mn, sc in zip(model_names, llr.cpu().numpy()):
+            results.append(ScoreLine(gender, mn, _decision(sc, threshold),
+                                     test_name, float(sc)))
+    write_nist_scores(cfg.get_str("outputFilename"), results)
+    return results
+
+
+def dot_product_main(cfg: Config) -> list[ScoreLine]:
+    """Supervector dot-product scoring (ComputeTestDotProduct, cpp:228):
+    score = <Σ⁻¹·(sv_client − sv_world), F̄_test>/n_frames, optional NAP
+    (``napMatrix``) on the client offset."""
+    world, ndx, gender, threshold, _ = _trial_context(cfg)
+    dev = world.device
+    nap_u = None
+    if cfg.exists("napMatrix"):
+        nap_u = torch.as_tensor(read_matrix_file(cfg.get_str("napMatrix")),
+                                dtype=torch.float32, device=dev)
+    world_sv = model_to_sv(world)
+    results = []
+    offsets: dict[str, torch.Tensor] = {}
+    for test_name, model_names in ndx:
+        fs, mask = load_features_and_mask([test_name], cfg)
+        x_np, w_np, _ = _pad_frames(np.asarray(fs.data, np.float32),
+                                    w=np.asarray(mask, np.float32))
+        n, f = accumulate_bw_stats(torch.from_numpy(x_np).to(dev),
+                                   torch.from_numpy(w_np).to(dev), world)
+        fbar = ((f - n[:, None] * world.means) * world.cov_inv).reshape(-1)
+        frames = max(float(torch.sum(n)), 1e-6)
+        for mn in model_names:
+            if mn not in offsets:
+                off = model_to_sv(GmmDiag.load(mixture_path(mn, cfg),
+                                               device=dev)) - world_sv
+                if nap_u is not None:
+                    off = off - project_on_subspace(off[None, :], nap_u)[0]
+                offsets[mn] = off
+        scores = (torch.stack([offsets[mn] for mn in model_names]) @ fbar
+                  ).cpu().numpy()
+        for mn, sc in zip(model_names, scores):
+            sc = float(sc) / frames
+            results.append(ScoreLine(gender, mn, _decision(sc, threshold),
+                                     test_name, sc))
+    write_nist_scores(cfg.get_str("outputFilename"), results)
+    return results
+
+
+def nap_main(cfg: Config) -> list[ScoreLine]:
+    """NAP-compensated GMM scoring (ComputeTestNAP, cpp:767): the
+    nuisance subspace (``napMatrix``) projected out of the client mean
+    supervectors, then top-K LLR on the selected frames."""
+    world, ndx, gender, threshold, top_k = _trial_context(cfg)
+    dev = world.device
+    u = torch.as_tensor(read_matrix_file(cfg.get_str("napMatrix")),
+                        dtype=torch.float32, device=dev)
+    results = []
+    cache: dict[str, GmmDiag] = {}
+    for test_name, model_names in ndx:
+        fs, mask = load_features_and_mask([test_name], cfg)
+        sel = np.nonzero(mask > 0)[0]
+        x_np, w_np, _ = _pad_frames(np.asarray(fs.data[sel], np.float32))
+        for mn in model_names:
+            if mn not in cache:
+                cache[mn] = compute_nap(GmmDiag.load(mixture_path(mn, cfg),
+                                                     device=dev), u)
+        clients, _ = _pad_clients([cache[mn] for mn in model_names])
+        llr = compute_test_llr(
+            torch.from_numpy(x_np).to(dev), torch.from_numpy(w_np).to(dev),
+            world, stack_gmms(clients), top_k=min(top_k, world.n_components))
         for mn, sc in zip(model_names, llr.cpu().numpy()):
             results.append(ScoreLine(gender, mn, _decision(sc, threshold),
                                      test_name, float(sc)))

@@ -6,8 +6,9 @@ Equivalent of reference ``LIA_SpkDet/NormFeat`` modes (NormFeat.cpp):
 ``featWarp`` (cpp:661), ``featMap`` (cpp:583) and ``info`` (cpp:520 —
 print the stats) and ``featFA``/``featLFA`` (cpp:793/856: each file's
 channel offset U·x, estimated on its own stats, removed from its
-frames).  Normalised features are written with the save
-format/extension keys.  ``featNAP`` is not ported yet.
+frames) and ``featNAP`` (cpp:724 — the occupancy-weighted NAP offset
+of the world's supervector removed from every frame).  Normalised
+features are written with the save format/extension keys.
 
 Files are read ``FILE_BATCH`` at a time; in the file, window and warp
 modes, files of one frame bucket go to the device as one zero-weight
@@ -22,21 +23,23 @@ import sys
 import numpy as np
 import torch
 
+from ..backend.supervector import model_to_sv, project_on_subspace
 from ..config import Config
 from ..fa.lfa import channel_gram
 from ..frontend.normfeat import (cmvn_global_batch, cmvn_segmental,
                                  cmvn_window_batch, feature_mapping,
                                  feature_warping, feature_warping_batch)
+from ..gmm.kernels import llk_and_posteriors
 from ..gmm.model import GmmDiag
 from ..io.features import write_feature_file
+from ..io.matrix import read_matrix_file
 from ..utils.shapes import bucket_len
 from .common import (compensate_session, file_frame_mask,
                      load_features_and_mask, load_files_batch,
-                     load_lfa_model, mixture_path, not_ported,
-                     resolve_device, resolve_list, setup_verbose)
+                     load_lfa_model, mixture_path, resolve_device,
+                     resolve_list, setup_verbose)
 
 FILE_BATCH = 128                 # files read (and batched) at a time
-_NOT_PORTED = {"featNAP": 13}
 
 
 def _out_path(name: str, cfg: Config) -> str:
@@ -98,8 +101,6 @@ def _warp_prepad(window: int):
 def main(cfg: Config) -> dict[str, np.ndarray]:
     verbose = setup_verbose(cfg)
     mode = cfg.get_str("mode", "norm")
-    if mode in _NOT_PORTED:
-        raise not_ported(f"NormFeat mode={mode}", _NOT_PORTED[mode])
     dev = resolve_device(cfg)
     names = resolve_list(cfg, "inputFeatureFilename"
                          if cfg.exists("inputFeatureFilename")
@@ -119,6 +120,15 @@ def main(cfg: Config) -> dict[str, np.ndarray]:
                                           cfg), device=dev)
         fa_model = load_lfa_model(cfg, world)
         mapping = (world, fa_model, channel_gram(fa_model))
+    elif mode == "featNAP":
+        # (world, its supervector's NAP component as (K, D)), once per run
+        # (getUbmOffset, NormFeat.cpp:189-197)
+        world = GmmDiag.load(mixture_path(cfg.get_str("inputWorldFilename"),
+                                          cfg), device=dev)
+        u = torch.as_tensor(read_matrix_file(cfg.get_str("initChannelMatrix")),
+                            dtype=torch.float32, device=dev)
+        mapping = (world, project_on_subspace(model_to_sv(world), u)
+                   .reshape(world.means.shape))
     out: dict[str, np.ndarray] = {}
     # FILE_BATCH files at a time: read, normalise, write and free, so a
     # corpus-size run keeps one chunk's inputs in memory
@@ -196,6 +206,13 @@ def _process_chunk(names, cfg, mode, seg_mode, window, mapping, dev, verbose,
                 # feature-domain channel compensation (reference
                 # normFeatFA/normFeatLFA, NormFeat.cpp:793/856)
                 y = compensate_session(x, w, *mapping)
+            elif mode == "featNAP":
+                # NAP feature-domain compensation (reference normFeatNAP,
+                # NormFeat.cpp:724; featureChannelCompNAP cpp:213-229):
+                # x_d −= Σ_k γ_k(x)·ubm_offset[k, d], one (N, K) @ (K, D)
+                world, ubm_offset = mapping
+                _, occ = llk_and_posteriors(x, world)
+                y = x - occ @ ubm_offset
             else:
                 raise ValueError(f"unknown NormFeat mode {mode}")
             data = y.cpu().numpy()

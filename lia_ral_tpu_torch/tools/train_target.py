@@ -8,8 +8,11 @@ client model.  On a CUDA device the EM stats of every iteration run in
 kernel K1.  ``channelCompensation``: ``JFA`` enrols every client by one
 joint [V;U] estimate (TrainTargetJFA, its session stats in kernel K2);
 ``LFA`` (or a true boolean) removes each client's channel offset U·x
-from its frames before MAP.  ``NAP`` and ``outputAdaptParam`` are not
-ported yet.
+from its frames before MAP.  ``NAP`` removes the ``NAPChannelMatrix``
+subspace from each MAP model's mean supervector (TrainTarget.cpp:154-157);
+``outputAdaptParam`` writes the client's ``superVector`` (KL | SVMUBM) as
+a ``.vect`` matrix in ``saveVectorFilesPath`` in place of the model file
+(cpp:158-169).
 """
 
 from __future__ import annotations
@@ -20,16 +23,17 @@ import sys
 import numpy as np
 import torch
 
+from ..backend.supervector import compute_nap, get_supervector
 from ..config import Config
 from ..fa.jfa import JfaModel, enroll_targets_joint
 from ..fa.lfa import channel_gram
 from ..gmm.map_adapt import MapCfg, adapt_model
 from ..gmm.model import GmmDiag
 from ..io.lists import read_ndx
-from ..io.matrix import write_matrix_file
+from ..io.matrix import read_matrix_file, write_matrix_file
 from .common import (compensate_session, load_features_and_mask,
-                     load_lfa_model, mixture_path, not_ported,
-                     resolve_device, setup_verbose)
+                     load_lfa_model, mixture_path, resolve_device,
+                     setup_verbose)
 from .jfa_tools import accumulate_session_stats, load_subspace
 
 
@@ -96,9 +100,6 @@ def main(cfg: Config) -> dict[str, GmmDiag]:
     cc = cfg.get_str("channelCompensation", "")
     if cc == "JFA":
         return train_target_jfa(cfg)
-    for key in ("NAP", "outputAdaptParam"):
-        if cfg.get_bool(key, False):
-            raise not_ported(f"TrainTarget {key}", 13)
     verbose = setup_verbose(cfg)
     dev = resolve_device(cfg)
     world = GmmDiag.load(mixture_path(cfg.get_str("inputWorldFilename"), cfg),
@@ -113,6 +114,19 @@ def main(cfg: Config) -> dict[str, GmmDiag]:
     if cc == "LFA" or (cc and cfg.get_bool("channelCompensation", False)):
         fa_model = load_lfa_model(cfg, world)
         gram = channel_gram(fa_model)
+    # optional NAP of the client supervector (TrainTarget.cpp:154-157) and
+    # supervector output instead of a model file (outputAdaptParam,
+    # cpp:158-169: getSuperVector KL|SVMUBM written as a .vect matrix)
+    nap_u = None
+    if cfg.get_bool("NAP", False):
+        nap_u = torch.as_tensor(
+            read_matrix_file(cfg.get_str("NAPChannelMatrix",
+                                         cfg.get_str("channelMatrix", "U"))),
+            dtype=torch.float32, device=dev)
+    output_adapt_param = cfg.get_bool("outputAdaptParam", False)
+    sv_path = cfg.get_str("saveVectorFilesPath", "./")
+    sv_ext = cfg.get_str("vectorFilesExtension", ".vect")
+    sv_mode = cfg.get_str("superVector", "KL")
     out: dict[str, GmmDiag] = {}
     for line_no, (client, files) in enumerate(
             read_ndx(cfg.get_str("targetIdList"))):
@@ -138,8 +152,15 @@ def main(cfg: Config) -> dict[str, GmmDiag]:
             x = compensate_session(x, w, world, fa_model, gram)
         gen = torch.Generator(device=dev).manual_seed(seed + line_no)
         client_model = adapt_model(gen, x, w, world, mcfg)
-        client_model.save(mixture_path(client, cfg, save=True), fmt=fmt,
-                          model_id=client)
+        if nap_u is not None:
+            client_model = compute_nap(client_model, nap_u)
+        if output_adapt_param:
+            sv = get_supervector(sv_mode, world, client_model)
+            write_matrix_file(os.path.join(sv_path, client + sv_ext),
+                              sv.cpu().numpy().astype(np.float64)[None, :])
+        else:
+            client_model.save(mixture_path(client, cfg, save=True), fmt=fmt,
+                              model_id=client)
         out[client] = client_model
         if verbose:
             print(f"client [{client}]: {int(mask.sum())} frames "

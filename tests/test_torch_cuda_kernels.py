@@ -1,6 +1,6 @@
-"""The CUDA kernels K1 (em_stats_fused), K2 (bw_stats_fused) and the
-Viterbi decoder of the PyTorch port against their plain PyTorch versions,
-on the card.
+"""The CUDA kernels K1 (em_stats_fused), K2 (bw_stats_fused), the
+Viterbi decoder and the SVM dual solver of the PyTorch port against their
+plain PyTorch versions, on the card.
 
 Every test here is marked ``cuda`` and skips where torch sees no CUDA
 device.  This file imports neither jax nor the JAX package, so it also
@@ -535,3 +535,93 @@ def test_state_adapt_on_cuda_keeps_empty_rows(cuda_device):
     assert torch.equal(bank.means[1], world.means)
     _close(bank.weights[1], world.weights, 1e-6)
     assert not torch.equal(bank.means[0], world.means)
+
+
+# -- the SVM dual solver (csrc/svm_dual.cu) ------------------------------------
+
+def _svm_problem(seed, n_tgt, n_coh, d, device):
+    """A 1-target-vs-cohort problem (the JAX parity test's shape)."""
+    rng = np.random.default_rng(seed)
+    x = np.vstack([rng.standard_normal((n_tgt, d)) * 0.3 + 1.2,
+                   rng.standard_normal((n_coh, d))]).astype(np.float32)
+    y = np.r_[np.ones(n_tgt), -np.ones(n_coh)].astype(np.float32)
+    return torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+
+
+@pytest.mark.parametrize("n_tgt,n_coh,d,kind,penalty", [
+    (5, 50, 4000, "linear", None), (5, 50, 4000, "rbf", None),
+    (5, 50, 4000, "linear", 10.0), (3, 60, 40, "poly", None),
+    (1, 1000, 512, "linear", None), (40, 1, 64, "linear", None)])
+def test_svm_dual_cuda_matches_plain(cuda_device, n_tgt, n_coh, d, kind,
+                                     penalty):
+    """α within 1e-3·C of the plain loop on the same K, decisions within
+    1e-3 of their scale (sums in another order, carried through 500 FISTA
+    steps), and a rerun equal to the digit."""
+    from lia_ral_tpu_torch.backend import svm
+
+    x, y = _svm_problem(7, n_tgt, n_coh, d, cuda_device)
+    c = svm.default_c(x.cpu().numpy())
+    c_vec = torch.full_like(y, c)
+    if penalty:
+        c_vec[y > 0] *= penalty
+    k = svm.kernel_matrix(x, x, kind, degree=2)
+    before = svm.launch_counts["svm_dual"]
+    got = svm.dual_solve_cuda(k, y, c_vec)
+    torch.cuda.synchronize()
+    assert svm.launch_counts["svm_dual"] == before + 1
+    want = svm.dual_solve_reference(k, y, c_vec)
+    assert float((got - want).abs().max()) <= 1e-3 * float(c_vec.max())
+    _close(k @ (got * y), k @ (want * y), 1e-3)
+    again = svm.dual_solve_cuda(k, y, c_vec)
+    assert torch.equal(again, got)
+
+
+def test_svm_dual_cuda_batch_equals_single(cuda_device):
+    """B problems on the grid: each block solves its own problem, digit
+    for digit as alone."""
+    from lia_ral_tpu_torch.backend import svm
+
+    ks, ys, cs = [], [], []
+    for seed in range(3):
+        x, y = _svm_problem(seed, 4, 30, 100, cuda_device)
+        ks.append(svm.kernel_matrix(x, x))
+        ys.append(y)
+        cs.append(torch.full_like(y, svm.default_c(x.cpu().numpy())))
+    got = svm.dual_solve_cuda(torch.stack(ks), torch.stack(ys),
+                              torch.stack(cs))
+    for i in range(3):
+        assert torch.equal(got[i], svm.dual_solve_cuda(ks[i], ys[i], cs[i]))
+
+
+def test_svm_train_runs_the_kernel_once(cuda_device, monkeypatch):
+    """svm_train on a CUDA tensor launches the kernel once and never the
+    plain loop; the model it gives separates its two classes."""
+    from lia_ral_tpu_torch.backend import svm
+
+    def boom(*a, **kw):
+        raise AssertionError("plain dual solve reached from a CUDA tensor")
+
+    monkeypatch.setattr(svm, "dual_solve_reference", boom)
+    x, y = _svm_problem(3, 5, 50, 300, cuda_device)
+    before = svm.launch_counts["svm_dual"]
+    model = svm.svm_train(x, y.cpu().numpy(), target_penalty=10.0)
+    assert svm.launch_counts["svm_dual"] == before + 1
+    dec = model.decision(x).cpu().numpy()
+    assert dec[:5].min() > dec[5:].max()
+
+
+def test_svm_dual_cuda_rejects_bad_inputs(cuda_device):
+    from lia_ral_tpu_torch.backend import svm
+
+    n = svm.MAX_VECTORS + 1
+    y = torch.ones(n, device=cuda_device)
+    with pytest.raises(ValueError, match="8192"):
+        svm.dual_solve_cuda(torch.zeros((n, n), device=cuda_device), y, y)
+    y = torch.ones(4, device=cuda_device)
+    with pytest.raises(TypeError):
+        svm.dual_solve_cuda(torch.zeros((4, 4), device=cuda_device,
+                                        dtype=torch.float64), y, y)
+    with pytest.raises(ValueError):
+        svm.dual_solve_cuda(torch.zeros((4, 4)), y.cpu(), y.cpu())
+    with pytest.raises(ValueError):
+        svm.dual_solve_cuda(torch.zeros((4, 5), device=cuda_device), y, y)

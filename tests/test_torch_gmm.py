@@ -451,6 +451,15 @@ def test_port_imports_no_jax():
         "import lia_ral_tpu_torch.api, lia_ral_tpu_torch.api.spkdet\n"
         "import lia_ral_tpu_torch.api.server\n"
         "import lia_ral_tpu_torch.api.client\n"
+        "import lia_ral_tpu_torch.utils, lia_ral_tpu_torch.utils.logging\n"
+        "import lia_ral_tpu_torch.utils.scores, lia_ral_tpu_torch.utils.labels\n"
+        "import lia_ral_tpu_torch.utils.ngram, lia_ral_tpu_torch.utils.seqtree\n"
+        "import lia_ral_tpu_torch.utils.polyexp\n"
+        "import lia_ral_tpu_torch.utils.tokenizer\n"
+        "import lia_ral_tpu_torch.io.repair\n"
+        "import lia_ral_tpu_torch.backend.supervector\n"
+        "import lia_ral_tpu_torch.backend.svm\n"
+        "import lia_ral_tpu_torch.tools.utils_tools\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"

@@ -736,7 +736,7 @@ def test_seg_tool_presets_and_unknown_mode(seg_corpus, tmp_path):
     assert tmain.TOOLS["TurnDetection"][1] == {"segMode": "turnDetection"}
     assert tmain.TOOLS["Segmentation"][1] == {"segMode": "segmentation"}
     assert tmain.TOOLS["ReSegmentation"][1] == {"segMode": "resegmentation"}
-    assert sum(v is None for v in tmain.TOOLS.values()) == 20
+    assert sum(v is None for v in tmain.TOOLS.values()) == 0
     d, _ = seg_corpus
     cfg = TConfig(_seg_cfg(d, str(tmp_path), inputFeatureFilename="convsp",
                            segMode="acoustic", torchDevice="cpu"))

@@ -567,8 +567,11 @@ def test_unported_modes_raise(extra):
 def test_main_dispatch(tmp_path, capsys):
     assert tmain.main([]) == 0
     assert "TrainWorld" in capsys.readouterr().out
-    assert tmain.main(["Scoring"]) == 2         # a utility tool
-    assert "not ported" in capsys.readouterr().err
+    # a utility tool: through the umbrella to its first missing key
+    from lia_ral_tpu_torch.config import ConfigError
+    with pytest.raises(ConfigError, match="missing config parameter"):
+        tmain.main(["Scoring", "--torchDevice", "cpu"])
+    assert "not ported" not in capsys.readouterr().out
     assert tmain.main(["NoSuchTool"]) == 2
     import importlib
     from lia_ral_tpu import __main__ as jmain
@@ -586,7 +589,11 @@ def test_main_dispatch(tmp_path, capsys):
                       ("SpkAdapt", "spk_adapt"),
                       ("TurnDetection", "spkseg_tools"),
                       ("Segmentation", "spkseg_tools"),
-                      ("ReSegmentation", "spkseg_tools")):
+                      ("ReSegmentation", "spkseg_tools"),
+                      ("Scoring", "utils_tools"), ("NAPSV", "utils_tools"),
+                      ("CovIntra", "utils_tools"),
+                      ("SvmTrain", "utils_tools"),
+                      ("SvmPredict", "utils_tools")):
         # the module and the preset mode key of the JAX package's table
         assert tmain.TOOLS[name] == jmain.TOOLS[name]
         assert tmain.TOOLS[name][0] == mod
@@ -1082,21 +1089,18 @@ def test_train_target_keys_match_jax(gu_corpus, tmp_path, capsys):
     ("norm_feat", {"mode": "featNAP"}, 13),
 ], ids=lambda v: v if isinstance(v, str) else None)
 def test_gmm_ubm_unported_modes_raise(tool, extra, item):
-    """The supervector modes (item 13) raise naming their ROADMAP item;
-    the channel-compensation modes (item 10) are ported: given the mode
-    key alone, the tool gets as far as its first mandatory key."""
+    """No mode is left unported: the channel-compensation modes (ROADMAP
+    item 10) and the supervector modes (item 13), given the mode key
+    alone, get as far as the tool's first mandatory key (a ConfigError,
+    which no not-ported error precedes)."""
     import importlib
     from lia_ral_tpu_torch.config import ConfigError
 
     mod = importlib.import_module(f"lia_ral_tpu_torch.tools.{tool}")
     cfg = TConfig(dict(extra, torchDevice="cpu"))
-    if item == 13:
-        with pytest.raises(NotImplementedError,
-                           match=rf"ROADMAP queue 1, item {item}\)"):
-            mod.main(cfg)
-    else:
-        with pytest.raises(ConfigError, match="missing config parameter"):
-            mod.main(cfg)
+    assert item in (10, 13)
+    with pytest.raises(ConfigError, match="missing config parameter"):
+        mod.main(cfg)
 
 
 # -- the JFA / LFA chain (config 4) ---------------------------------------------
