@@ -9,7 +9,9 @@ printed as it ends; any failure raises and the exit code is non-zero:
 
 1. device   the card's name and power limit (nvidia-smi), torch and CUDA
 2. build    nvcc builds the kernels of csrc/ into the ignored build dir,
-            one process per source, side by side
+            one process per source, side by side, and g++ builds
+            native/liaio.cpp (the feature reader) and native/oracle.cpp
+            (the f64 parity oracle) beside them
 3. K1       em_stats_fused in every tier (default, fastStats, fastMath,
             both) against its plain version (and closer to it than to
             another tier's), ~5 % zero-weight frames, at the shapes the
@@ -43,7 +45,9 @@ printed as it ends; any failure raises and the exit code is non-zero:
             counted from 0), and that the final UBMs agree in meanLLK
             with the default chain's within 1e-2 (fastStats) and 5e-2
             (fastMath).  Times each tool (host clock) and the kernels
-            inside it (CUDA events around each wrapper call).
+            inside it (CUDA events around each wrapper call).  Every
+            feature file goes through the native reader (its read counts:
+            not one numpy read of these SPRO4 files).
 7. timing   each kernel, in every tier, and its plain version at the
             slice's shapes (1M frames; K2 as 500 × 2000), CUDA events,
             median of 3 after warm-up; the last outputs of each pair are
@@ -77,7 +81,10 @@ printed as it ends; any failure raises and the exit code is non-zero:
             the plain stats path on the card: means within 1e-3·max|μ|,
             LLRs on 20 test segments within 1e-3.  Prints each tool's
             wall time, K1's device ms and launches per tool, and the raw
-            and ZT-norm EER.
+            and ZT-norm EER.  The tools read natively (read counts, no
+            numpy read); then the 500 raw files are read through each
+            reader (the native batched loader and numpy), timed, and the
+            arrays held equal to the digit.
 9. backend  the i-vector back end of configs 3 and 5 (K=2048, D=39,
             R=400) on phase 6's default-tier chain, whose
             TotalVariability call also writes the eigenDecomposition
@@ -181,11 +188,40 @@ printed as it ends; any failure raises and the exit code is non-zero:
             times (median of 3; the plain loop on the card once).  Prints
             each tool's wall, K1 and svm_dual device ms and launches per
             tool, the SVM, nap and dotProduct EERs.
+14. parallel numThread on the one card: meshes of shards of cuda:0 (one
+            thread and one CUDA stream a shard, collectives reducing in
+            shard order).  sharded_stats_fn on a 4 × 1 mesh at 1M frames,
+            K=2048, D=39, default and fastStats (K1 4 times a call,
+            against serial K1 within the K1 budgets, count exact);
+            sharded_em_stats_2d on 2 × 2 against em_stats_chunked;
+            sharded_tv_e_step (4 × 1) and sharded_tv_e_step_2d (2 × 2) on
+            phase 6's stats and T (500 utterances, R=400; peak memory
+            printed); sharded_estimate_w (pcg_tol 0); the JFA V and U
+            iterations on phase 10's stats and subspaces; PLDA EM and
+            scoring on phase 9's normalised vectors and PLDA model: each
+            within 1e-3 of scale of its serial function and a rerun
+            equal to the digit.  TrainWorld (K1 4 times an iteration) and
+            TotalVariability with numThread 4, the visible-devices
+            function patched to 4 shards of the card (T within rtol 2e-3,
+            atol 2e-4 of numThread 1's), and without the patch (no mesh,
+            T equal to the digit).  Two processes on cuda:0 under gloo
+            (tests/_torch_multihost_worker.py): global_stats with K1 on
+            half the 1M frames each (once a rank, within the K1 budgets
+            of single-process K1), then the PLDA, TV, JFA V and
+            extraction problems of tests/_multihost_worker.py, the ranks
+            equal to the digit.  Then K1 at 1M frames timed serial and
+            sharded.
+15. oracle  scripts/torch_oracle_parity.py at scale small (K=256, D=24,
+            R=64, 4000 trials): the port's chain on the card against the
+            f64 oracle stage by stage; per-trial LLR within 1e-3 and
+            i-vectors within 1e-3 of scale; the deviations and both EER
+            deltas printed beside the JAX package's.
 
 The line before the last is one JSON object of per-kernel results
-(``launches`` summed over the main paths of phases 6 and 8-13, by path in
-``launches_by_path``; ``check_launches`` from the comparisons of phases
-3, 4, 7, 8, 11 and 13; ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
+(``launches`` summed over the main paths of phases 6, 8-13, 14 and 15,
+by path in ``launches_by_path``, where "parallel-2-processes" counts the
+two ranks' launches apart; ``check_launches`` from the comparisons of
+phases 3, 4, 7, 8, 11, 13 and 14; ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
 ``library_ms`` from phase 7, the Viterbi kernel's from phase 11, the SVM
 dual kernel's from phase 13); the last line is {"ok": true, "device":
 {...}}.
@@ -233,14 +269,15 @@ from lia_ral_tpu_torch.config import Config
 from lia_ral_tpu_torch.convert import gmm_from_numpy
 from lia_ral_tpu_torch.fa.jfa import (JfaModel, JfaStats, estimate_x,
                                       estimate_y, jfa_d_iteration,
-                                      jfa_v_iteration, jfa_verify_em_llk)
+                                      jfa_u_iteration, jfa_v_iteration,
+                                      jfa_verify_em_llk)
 from lia_ral_tpu_torch.fa.stats import BwStats, bw_stats_batch, load_stats
 from lia_ral_tpu_torch.fa.tv import (TvModel, approximate_tctc,
                                      eigen_decompose_w, estimate_w,
                                      estimate_w_eigen_decomposition,
                                      estimate_w_ubm_weight, init_t,
                                      norm_t_matrix, orthonormalize_t,
-                                     weighted_cov)
+                                     tv_e_step, weighted_cov)
 from lia_ral_tpu_torch.gmm import cuda_kernels as ck
 from lia_ral_tpu_torch.gmm.em import (TrainCfg, default_stats_fn,
                                       mixture_init, train_model)
@@ -248,6 +285,7 @@ from lia_ral_tpu_torch.gmm.kernels import em_stats_chunked
 from lia_ral_tpu_torch.gmm.map_adapt import MapCfg, adapt_model
 from lia_ral_tpu_torch.gmm.model import GmmDiag
 from lia_ral_tpu_torch.gmm.scoring import compute_test_llr, stack_gmms
+from lia_ral_tpu_torch.io import native as tnative
 from lia_ral_tpu_torch.io.features import (read_feature_file,
                                            write_feature_file)
 from lia_ral_tpu_torch.io.labels import (frame_mask_to_segments,
@@ -255,7 +293,18 @@ from lia_ral_tpu_torch.io.labels import (frame_mask_to_segments,
 from lia_ral_tpu_torch.io.lists import read_xlist, write_xlist
 from lia_ral_tpu_torch.io.matrix import read_matrix_file, write_matrix_file
 from lia_ral_tpu_torch.io.nist import read_nist_scores
-from lia_ral_tpu_torch.tools.common import load_features_and_mask
+from lia_ral_tpu_torch.tools.common import (load_features_and_mask,
+                                            load_files_batch)
+from lia_ral_tpu_torch.parallel import mesh as pmesh
+from lia_ral_tpu_torch.parallel.sharding import (sharded_em_stats_2d,
+                                                 sharded_estimate_w,
+                                                 sharded_jfa_u_iteration,
+                                                 sharded_jfa_v_iteration,
+                                                 sharded_plda_em_iteration,
+                                                 sharded_plda_llr,
+                                                 sharded_stats_fn,
+                                                 sharded_tv_e_step,
+                                                 sharded_tv_e_step_2d)
 from lia_ral_tpu_torch.seg import hmm as seg_hmm
 from lia_ral_tpu_torch.tools.iv_norm import load_vectors
 from lia_ral_tpu_torch.utils.shapes import bucket_len
@@ -766,6 +815,46 @@ def gmm_ubm_args(d, device):
             "--labelSelectedFrames", "speech"]
 
 
+def check_native_reads(label) -> None:
+    """The feature files a path read went through the native reader: its
+    read counts (from 0 before the path) show native reads and not one
+    numpy read of these SPRO4 files."""
+    reads = dict(tnative.read_counts)
+    print(f"  {label}: feature files read natively {reads['native']}, "
+          f"with numpy {reads['numpy']}")
+    check(reads["native"] > 0 and reads["numpy"] == 0,
+          f"{label}: SPRO4 files read through the native loader ({reads})")
+
+
+def time_readers(d, names) -> None:
+    """Phase 8's 500 raw files through each reader: the native batched
+    loader (``load_files_batch``, 64 files a batch) and the numpy reader
+    (``read_feature_file(use_native=False)``), host clock, in turns
+    (numpy, native, native, numpy; the best of each); the arrays must be
+    equal to the digit."""
+    cfg = Config({"featureFilesPath": d + "/", "loadFeatureFileFormat":
+                  "SPRO4", "loadFeatureFileExtension": ".prm"})
+    paths = [os.path.join(d, n + ".prm") for n in names]
+    readers = {"native": lambda: load_files_batch(names, cfg),
+               "numpy": lambda: [read_feature_file(p, fmt="SPRO4",
+                                                   use_native=False).data
+                                 for p in paths]}
+    times, out = {"native": [], "numpy": []}, {}
+    for name in ("numpy", "native", "native", "numpy"):
+        t1 = time.perf_counter()
+        out[name] = readers[name]()
+        times[name].append(time.perf_counter() - t1)
+    check(all(a is not None and np.array_equal(a, b)
+              for a, b in zip(out["native"], out["numpy"])),
+          "the native and numpy readers give the same arrays")
+    mb = sum(a.nbytes for a in out["numpy"]) / 1e6
+    best = {k: min(v) for k, v in times.items()}
+    print(f"  gmm-ubm: {len(paths)} files ({mb:.1f} MB of frames) read in "
+          f"{best['native']:.3f} s natively (batches of 64), "
+          f"{best['numpy']:.3f} s with numpy (best of 2 each); equal to "
+          "the digit")
+
+
 def run_gmm_ubm(kernels, dev):
     """Phase 8: the GMM-UBM chain at full width on 500 files, K1's launch
     counts and device ms per tool, the scores' checks and EERs, then the
@@ -776,6 +865,7 @@ def run_gmm_ubm(kernels, dev):
     common = gmm_ubm_args(d, dev.type)
     walls, k1_ms, k1_launches = {}, {}, {}
     ck.reset_launch_counts()
+    tnative.reset_read_counts()
     for label, tool, args in gmm_ubm_steps(d, lists):
         before = dict(ck.launch_counts)
         kms = {}
@@ -784,6 +874,7 @@ def run_gmm_ubm(kernels, dev):
         k1_launches[label] = (ck.launch_counts["em_stats_fused"]
                               - before["em_stats_fused"])
     launches = dict(ck.launch_counts)
+    check_native_reads("gmm-ubm")
     print("  gmm-ubm: tool wall s " + ", ".join(
         f"{k} {v:.3f}" for k, v in walls.items()))
     print("  gmm-ubm: K1 device ms (launches) " + ", ".join(
@@ -827,6 +918,7 @@ def run_gmm_ubm(kernels, dev):
         y = read_feature_file(path, fmt="SPRO4").data
         check(y.shape == (T_UTT, D) and bool(np.isfinite(y).all()),
               f"featWarp output {path}")
+    time_readers(d, [row[0] for row in read_xlist(lists["all"])])
     ck.reset_launch_counts()
     dmu, mu_max, dllr = check_map_library(d, dev)
     print(f"  gmm-ubm: adapt_model K1 vs plain stats on the card, "
@@ -2477,6 +2569,455 @@ def run_gmm_svm(gu_dir, gu_lists, diar_dir, diar_frames, kernels, dev):
           f"dotProduct {eers['dot']:.2f} %")
 
 
+# -- phase 14: numThread sharding and the multi-process runtime --------------
+
+PAR_SHARDS = 4          # shards of the one card (numThread 4)
+PAR_TOL = 1e-3          # a sharded result against the serial one, of scale
+WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "_torch_multihost_worker.py")
+
+
+def par_mesh(dev, n_data=PAR_SHARDS, n_model=1):
+    """A mesh of n_data × n_model shards of the one device."""
+    return pmesh.make_mesh(n_data, n_model, [dev] * (n_data * n_model))
+
+
+def leaves(obj) -> list:
+    """The tensors of a result: a tensor, a tuple of results, a state
+    dataclass."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (tuple, list)):
+        return [t for o in obj for t in leaves(o)]
+    return [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+
+
+def check_scaled(label, got, want, tol=PAR_TOL) -> float:
+    """max|got − want| within tol·max|want|, printed; returns the error
+    relative to the scale."""
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    print(f"  parallel {label}: max|sharded - serial| {err:.3e} (scale "
+          f"{scale:.3e})")
+    check(err <= tol * scale, f"{label} within {tol} of scale")
+    return err / max(scale, 1e-30)
+
+
+def multihost_problems(outdir, x, w, ubm) -> None:
+    """tests/_torch_multihost_worker.py's inputs: phase 5's 1M frames and
+    phase 6's UBM for the EM stats, then the PLDA, TV, JFA and extraction
+    problems of tests/_multihost_worker.py at its shapes and seeds, their
+    random inits drawn here (numpy and torch's CPU generator)."""
+    gen = torch.Generator().manual_seed(3)
+    rngp = np.random.default_rng(7)
+    vecs = rngp.standard_normal((16, 10)).astype(np.float32)
+    cov = np.cov(vecs.T).astype(np.float32)
+    plda = PldaModel.init(gen, 10, 4, 2, data_mean=torch.from_numpy(
+        vecs.mean(0)), data_cov=torch.from_numpy(cov))
+    rngt = np.random.default_rng(9)
+
+    def gmm_np(rng_, k, d):
+        gw = rng_.random(k) + 0.5
+        return gmm_from_numpy(gw / gw.sum(),
+                              rng_.standard_normal((k, d)).astype(np.float32),
+                              (rng_.random((k, d)) + 0.5).astype(np.float32))
+
+    tv_model = init_t(gen, 3, gmm_np(rngt, 6, 4))
+    tv_n = (rngt.random((8, 6)) * 20 + 1).astype(np.float32)
+    tv_f = (rngt.standard_normal((8, 6, 4)) * 3).astype(np.float32)
+    rngj = np.random.default_rng(11)
+    gmm_j = gmm_np(rngj, 6, 4)
+    jfa_n = (rngj.random((12, 6)) * 20 + 1).astype(np.float32)
+    jfa_f = (rngj.standard_normal((12, 6, 4)) * 3).astype(np.float32)
+    jmodel = JfaModel.init(gen, 2, 2, gmm_j, scale=0.1)
+    arr = {k: v.numpy() for k, v in (
+        ("plda_mean", plda.mean), ("plda_f", plda.f), ("plda_g", plda.g),
+        ("plda_sigma", plda.sigma), ("tv_t", tv_model.t),
+        ("tv_means", tv_model.ubm_means), ("tv_iv", tv_model.ubm_inv_var),
+        ("jfa_v", jmodel.v), ("jfa_u", jmodel.u), ("jfa_d", jmodel.d),
+        ("jfa_means", jmodel.ubm_means), ("jfa_iv", jmodel.ubm_inv_var))}
+    np.savez(os.path.join(outdir, "problems.npz"),
+             x=x.cpu().numpy(), w=w.cpu().numpy(),
+             gmm_w=ubm.weights.cpu().numpy(), gmm_m=ubm.means.cpu().numpy(),
+             gmm_ci=ubm.cov_inv.cpu().numpy(), plda_x=vecs,
+             plda_ids=np.arange(16) % 4, plda_n_spk=4, tv_n=tv_n, tv_f=tv_f,
+             jfa_n=jfa_n, jfa_f=jfa_f, jfa_spk=np.arange(12) % 4,
+             jfa_n_spk=4,
+             jfa_x=(rngj.standard_normal((12, 2)) * 0.1).astype(np.float32),
+             jfa_z=np.zeros((4, 6, 4), np.float32), pcg_tol=1e-7, **arr)
+
+
+def start_workers(outdir, kind, n=2):
+    """The worker processes of the two-rank run on ``kind`` (cuda: both
+    on cuda:0; gloo over a free localhost port); returns them, started."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    return [subprocess.Popen(
+        [sys.executable, WORKER, f"127.0.0.1:{port}", str(n), str(pid),
+         outdir, kind], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for pid in range(n)]
+
+
+def check_workers(procs, outdir, serial_k1, dev) -> dict:
+    """The two ranks' results: equal to each other to the digit, K1
+    launched once a rank, the EM stats within the K1 budgets of the
+    single-process K1 at 1M frames, the other problems within
+    tests/test_torch_multihost.py's tolerances of the serial functions on
+    the card.  Returns each rank's launch counts."""
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=600)
+        finally:
+            p.kill()
+        check(p.returncode == 0, f"multi-process worker failed:\n{out}")
+    info = [json.load(open(os.path.join(outdir, f"names_{pid}.json")))
+            for pid in range(len(procs))]
+    shards = [i["names"] for i in info]
+    check(not set(shards[0]) & set(shards[1])
+          and sorted(shards[0] + shards[1]) == sorted(f"f{i}"
+                                                      for i in range(10)),
+          "shard_file_list gives disjoint shards covering the list")
+    for pid, i in enumerate(info):
+        print(f"  parallel 2 processes: rank {pid} mesh {i['mesh']}, "
+              f"{i['local']} local shard, launches "
+              f"{ {k: v for k, v in i['launches'].items() if v} }")
+        check(i["launches"]["em_stats_fused"] == 1
+              and sum(i["launches"].values()) == 1,
+              f"rank {pid} launched K1 once for global_stats")
+
+    def load(name):
+        got = [dict(np.load(os.path.join(outdir, f"{name}_{pid}.npz")))
+               for pid in range(len(procs))]
+        for key in got[0]:
+            check(np.array_equal(got[0][key], got[1][key]),
+                  f"both ranks hold the same {name} {key}")
+        return {k: torch.from_numpy(v).to(dev) for k, v in got[0].items()}
+
+    got = load("stats")
+    check_stats("global_stats 2 ranks vs K1 1M frames",
+                [("n", got["n"], serial_k1.n, n_rtol("")),
+                 ("sum_x", got["sum_x"], serial_k1.sum_x, sum_rtol("")),
+                 ("sum_xx", got["sum_xx"], serial_k1.sum_xx, sum_rtol(""))],
+                (got["llk"][None], serial_k1.llk[None]))
+    check(float(got["count"]) == float(serial_k1.count),
+          "global_stats count exact")
+    p = np.load(os.path.join(outdir, "problems.npz"))
+    t = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in p.items()
+         if k not in ("x", "w")}
+    plda = PldaModel(mean=t["plda_mean"], f=t["plda_f"], g=t["plda_g"],
+                     sigma=t["plda_sigma"])
+    ref = plda_em_iteration(plda, DevSet(t["plda_x"], t["plda_ids"], 4))
+    got = load("plda")
+    for key in ("f", "sigma"):
+        check(torch.allclose(got[key], getattr(ref, key), rtol=1e-4,
+                             atol=1e-4), f"2-rank PLDA {key}")
+    tv_model = TvModel(t=t["tv_t"], ubm_means=t["tv_means"],
+                       ubm_inv_var=t["tv_iv"])
+    tv_stats = BwStats(n=t["tv_n"], f=t["tv_f"])
+    _, ref_tv = tv_e_step(tv_stats, tv_model, chunk=4)
+    got = load("tv")
+    for key in ("a", "c", "r_mat", "r_vec"):
+        check(torch.allclose(got[key], getattr(ref_tv, key), rtol=2e-3,
+                             atol=2e-3), f"2-rank TV E-step {key}")
+    jstats = JfaStats.from_sessions(BwStats(n=t["jfa_n"], f=t["jfa_f"]),
+                                    p["jfa_spk"], 4)
+    jmodel = JfaModel(v=t["jfa_v"], u=t["jfa_u"], d=t["jfa_d"],
+                      ubm_means=t["jfa_means"], ubm_inv_var=t["jfa_iv"])
+    ref_m, ref_y = jfa_v_iteration(jstats, jmodel, t["jfa_x"], t["jfa_z"])
+    got = load("jfa")
+    check(torch.allclose(got["v"], ref_m.v, rtol=2e-4, atol=2e-5)
+          and torch.allclose(got["y"], ref_y, rtol=2e-4, atol=2e-5),
+          "2-rank JFA V iteration")
+    ref_w = estimate_w(tv_stats, tv_model, chunk=2, pcg_iters=12)
+    check(torch.allclose(load("w_iv")["w"], ref_w, rtol=2e-3, atol=2e-3),
+          "2-rank i-vector extraction")
+    print("  parallel 2 processes: PLDA EM, TV E-step, JFA V iteration and "
+          "extraction equal the serial functions within "
+          "tests/test_torch_multihost.py's tolerances; ranks equal to the "
+          "digit")
+    return {f"rank{pid}": i["launches"] for pid, i in enumerate(info)}
+
+
+def run_parallel(xu, mask, workdir, gu_dir, gu_lists, kernels, dev):
+    """Phase 14: the sharded functions on meshes of shards of the one card
+    against their serial versions, TrainWorld and TotalVariability with
+    numThread 4, and two processes on the card under gloo."""
+    xf, wf = xu.reshape(-1, D), mask.reshape(-1)
+    out = os.path.join(workdir, "default")
+    ubm = GmmDiag.load(os.path.join(out, "wld.gmm"), device=dev)
+    mh_dir = temp_dir("lia_chip_smoke_mh_")
+    t1 = time.perf_counter()
+    multihost_problems(mh_dir, xf, wf, ubm)
+    procs = start_workers(mh_dir, dev.type)
+    print(f"  parallel: 2 worker processes started "
+          f"({time.perf_counter() - t1:.1f} s to write their inputs)")
+    path, compare = collections.Counter(), collections.Counter()
+
+    def counted(into, fn):
+        """fn() with the launch counts from 0; adds them to ``into``."""
+        ck.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        into.update(ck.launch_counts)
+        return res, dict(ck.launch_counts)
+
+    def twice(label, fn):
+        """The main-path call and its rerun, equal to the digit."""
+        res, c = counted(path, fn)
+        again, _ = counted(path, fn)
+        check(all(torch.equal(a, b) for a, b in zip(leaves(res),
+                                                    leaves(again))),
+              f"{label}: a rerun is equal to the digit")
+        return res, c
+
+    mesh = par_mesh(dev)
+    serial = {}
+    for tier in ("", "fastStats"):
+        cdt, sp = TIERS[tier]
+        key = entry("em_stats_fused", tier)
+        fn = sharded_stats_fn(mesh, fast_stats=tier == "fastStats")
+        got, c = twice(f"sharded K1 {key}", lambda: fn(xf, wf, ubm))
+        check(c[key] == PAR_SHARDS and sum(c.values()) == PAR_SHARDS,
+              f"sharded_stats_fn launched {key} once a shard ({c})")
+        want, _ = counted(compare, lambda: ck.em_stats_fused(
+            xf, wf, ubm, compute_dtype=cdt, stats_pass=sp))
+        serial[tier] = want
+        check_stats(f"sharded {key} {PAR_SHARDS} x 1 vs K1 1M frames",
+                    [("n", got.n, want.n, n_rtol(tier)),
+                     ("sum_x", got.sum_x, want.sum_x, sum_rtol(tier)),
+                     ("sum_xx", got.sum_xx, want.sum_xx, sum_rtol(tier))],
+                    (got.llk[None], want.llk[None]))
+        check(float(got.count) == float(want.count), f"{key} count exact")
+    mesh22 = par_mesh(dev, 2, 2)
+    got, _ = twice("sharded_em_stats_2d", lambda: sharded_em_stats_2d(
+        mesh22, xf, wf, ubm))
+    want = em_stats_chunked(xf, wf, ubm)
+    check_stats("sharded_em_stats_2d 2 x 2 vs em_stats_chunked",
+                [("n", got.n, want.n, 1e-4),
+                 ("sum_x", got.sum_x, want.sum_x, 1e-3),
+                 ("sum_xx", got.sum_xx, want.sum_xx, 1e-3)],
+                (got.llk[None], want.llk[None]))
+    del got, want
+
+    # the TV E-step and extraction on phase 6's stats and T
+    tv = TvModel.load(os.path.join(out, "TV.matx"), ubm)
+    tv = tv.replace(ubm_means=torch.as_tensor(
+        read_matrix_file(os.path.join(out, "TVmean.matx")).reshape(K, D),
+        dtype=torch.float32, device=dev))
+    stats, _ = load_stats(os.path.join(out, "tv_accs.npz"), device=dev)
+    w_ser, acc_ser = tv_e_step(stats, tv)
+    for label, fn in (
+            (f"sharded_tv_e_step {PAR_SHARDS} x 1",
+             lambda: sharded_tv_e_step(mesh, stats, tv)),
+            ("sharded_tv_e_step_2d 2 x 2",
+             lambda: sharded_tv_e_step_2d(mesh22, stats, tv))):
+        torch.cuda.reset_peak_memory_stats()
+        (w_shd, acc_shd), _ = twice(label, fn)
+        print(f"  parallel {label}: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"(each shard's a: {4 * K * R * R / 2**30:.2f} GiB at full "
+              "K, half that at K/2)")
+        check_scaled(f"{label} w", w_shd, w_ser)
+        for f in ("a", "c", "r_mat", "r_vec", "n_utts"):
+            check_scaled(f"{label} {f}", getattr(acc_shd, f),
+                         getattr(acc_ser, f))
+        del w_shd, acc_shd
+    del acc_ser
+    w_ser = estimate_w(stats, tv, pcg_tol=0.0)
+    w_shd, _ = twice("sharded_estimate_w", lambda: sharded_estimate_w(
+        mesh, stats, tv, pcg_tol=0.0))
+    check_scaled(f"sharded_estimate_w {PAR_SHARDS} x 1 (pcg_tol 0)", w_shd,
+                 w_ser)
+
+    # JFA V and U iterations on phase 10's stats and subspaces
+    world = GmmDiag.load(os.path.join(gu_dir, "wld.gmm"), device=dev)
+    accs = os.path.join(gu_dir, "jfa_accs.npz")
+    sess, _ = load_stats(accs, device=dev)
+    jstats = JfaStats.from_sessions(sess, np.load(accs + ".spk.npy"), N_SPK)
+
+    def subspace(name, rank):
+        return torch.as_tensor(read_matrix_file(os.path.join(
+            gu_dir, name + ".matx")).reshape(rank, K, D),
+            dtype=torch.float32, device=dev)
+
+    jmodel = JfaModel(v=subspace("EV", JFA_RV), u=subspace("EC", JFA_RU),
+                      d=torch.zeros_like(world.means), ubm_means=world.means,
+                      ubm_inv_var=world.cov_inv)
+    x0 = torch.zeros((jstats.sess.n.shape[0], JFA_RU), device=dev)
+    z0 = torch.zeros((N_SPK, K, D), device=dev)
+    m_ser, y_ser = jfa_v_iteration(jstats, jmodel, x0, z0)
+    (m_shd, y_shd), _ = twice("sharded_jfa_v_iteration",
+                              lambda: sharded_jfa_v_iteration(
+                                  mesh, jstats, jmodel, x0, z0))
+    check_scaled("sharded_jfa_v_iteration V", m_shd.v, m_ser.v)
+    check_scaled("sharded_jfa_v_iteration y", y_shd, y_ser)
+    m_ser, x_ser = jfa_u_iteration(jstats, jmodel, y_ser, z0)
+    (m_shd, x_shd), _ = twice("sharded_jfa_u_iteration",
+                              lambda: sharded_jfa_u_iteration(
+                                  mesh, jstats, jmodel, y_ser, z0))
+    check_scaled("sharded_jfa_u_iteration U", m_shd.u, m_ser.u)
+    check_scaled("sharded_jfa_u_iteration x", x_shd, x_ser)
+    del m_ser, m_shd, jmodel, jstats, sess
+
+    # PLDA EM and scoring on phase 9's normalised dev set and trials
+    norm = os.path.join(out, "norm")
+    names = [f"spk{i // UTT_PER_SPK:02d}_u{i % UTT_PER_SPK}"
+             for i in range(N_SPK * UTT_PER_SPK)]
+    vecs = torch.as_tensor(load_vectors(names, Config(
+        {"loadVectorFilesPath": norm + "/"})), device=dev)
+    spk_ids = torch.arange(N_SPK, device=dev).repeat_interleave(UTT_PER_SPK)
+    dev_set = DevSet(vecs, spk_ids, N_SPK)
+    plda = PldaModel.load(os.path.join(norm, "plda.npz"), device=dev)
+    ser = plda_em_iteration(plda, dev_set)
+    shd, _ = twice("sharded_plda_em_iteration",
+                   lambda: sharded_plda_em_iteration(mesh, plda, dev_set))
+    for f in ("mean", "f", "sigma"):
+        check_scaled(f"sharded_plda_em_iteration {f}", getattr(shd, f),
+                     getattr(ser, f))
+    by_spk = vecs.reshape(N_SPK, UTT_PER_SPK, -1)
+    half = UTT_PER_SPK // 2
+    enroll, tests = by_spk[:, :half].mean(1), by_spk[:, half:].reshape(-1, R)
+    ns = torch.full((N_SPK,), float(half), device=dev)
+    s_shd, _ = twice("sharded_plda_llr", lambda: sharded_plda_llr(
+        mesh, plda, enroll, ns, tests))
+    check_scaled(f"sharded_plda_llr ({N_SPK} models x {len(tests)} tests)",
+                 s_shd, plda_llr(plda, enroll, ns, tests))
+
+    # the tools under numThread 4: four shards of the card where the
+    # visible-devices function is patched, one device (no mesh) without
+    par = os.path.join(workdir, "parallel")
+    os.makedirs(par)
+    tw_args = chain_args(workdir, par, "", dev.type) + [
+        "--inputFeatureFilename", os.path.join(workdir, "world.lst"),
+        "--mixtureDistribCount", str(K), "--nbTrainIt", "3",
+        "--baggedFrameProbability", "1.0", "--initVarianceFlooring", "0.5",
+        "--finalVarianceFlooring", "0.1", "--initVarianceCeiling", "10.0",
+        "--finalVarianceCeiling", "10.0", "--randomSeed", "0",
+        "--outputWorldFilename", "wld", "--numThread", str(PAR_SHARDS)]
+    tv_args = chain_args(workdir, out, "", dev.type) + [
+        "--ndxFilename", os.path.join(workdir, "all.ndx"),
+        "--inputWorldFilename", "wld", "--totalVariabilityNumber", str(R),
+        "--nbIt", "2", "--initScale", "0.01", "--loadAccs", "true",
+        "--accsFilename", os.path.join(out, "tv_accs.npz")]
+
+    def tv_tool(name, threads):
+        run_tool("TotalVariability", tv_args + [
+            "--totalVariabilityMatrix", name, "--meanEstimate",
+            name + "mean", "--numThread", str(threads)], {})
+        return read_matrix_file(os.path.join(out, name + ".matx"))
+
+    ck.reset_launch_counts()
+    t_1 = tv_tool("TVnt1", 1)
+    t_4u = tv_tool("TVnt4u", PAR_SHARDS)
+    check(np.array_equal(t_4u, t_1), "numThread 4 with one visible device: "
+          "no mesh, T equal to numThread 1's to the digit")
+    visible = pmesh.visible_devices
+    pmesh.visible_devices = lambda kind="cuda": [dev] * PAR_SHARDS
+    try:
+        (wall, _), c = counted(path, lambda: run_tool("TrainWorld", tw_args,
+                                                      {}))
+        t_4 = tv_tool("TVnt4", PAR_SHARDS)
+    finally:
+        pmesh.visible_devices = visible
+    check(c["em_stats_fused"] == 3 * PAR_SHARDS and sum(c.values())
+          == 3 * PAR_SHARDS, f"TrainWorld numThread {PAR_SHARDS}: K1 "
+          f"{PAR_SHARDS} times an EM iteration ({c})")
+    llk = {}
+    for label, p in (("numThread 1", out), (f"numThread {PAR_SHARDS}",
+                                             par)):
+        g = GmmDiag.load(os.path.join(p, "wld.gmm"), device=dev)
+        llk[label] = float(em_stats_chunked(xf, wf, g).mean_llk())
+    print(f"  parallel TrainWorld numThread {PAR_SHARDS} ({wall:.2f} s): "
+          f"final UBM meanLLK {llk[f'numThread {PAR_SHARDS}']:.7f}, "
+          f"numThread 1 (phase 6) {llk['numThread 1']:.7f}")
+    check(abs(llk["numThread 1"] - llk[f"numThread {PAR_SHARDS}"]) <= 1e-4,
+          "TrainWorld numThread 4 and 1 agree in meanLLK within 1e-4")
+    dt = np.abs(t_4 - t_1)
+    print(f"  parallel TotalVariability numThread {PAR_SHARDS}: max|T - T "
+          f"numThread 1| {dt.max():.3e} (max|T| {np.abs(t_1).max():.3e})")
+    check(bool(np.all(dt <= 2e-4 + 2e-3 * np.abs(t_1))),
+          "TotalVariability numThread 4 T within rtol 2e-3, atol 2e-4")
+
+    # the two processes, then the sharded K1 timed against the serial one
+    ranks = check_workers(procs, mh_dir, serial[""], dev)
+    # where a sharded call's time goes: the four shards' K1 launches one
+    # after another on one stream (the card's work), the runtime alone
+    # (threads, streams and one psum of a scalar; on four CPU shards, no
+    # stream), and the sharded call
+    per = xf.shape[0] // PAR_SHARDS
+    stats_fn = sharded_stats_fn(mesh)
+    one, one_cpu = torch.ones((), device=dev), torch.ones(())
+    cpu_mesh = par_mesh(torch.device("cpu"))
+    times = {}
+    for label, fn in (
+            ("serial K1", lambda: ck.em_stats_fused(xf, wf, ubm)),
+            (f"{PAR_SHARDS} K1 of {per} frames in turn", lambda: [
+                ck.em_stats_fused(xf[i * per:(i + 1) * per],
+                                  wf[i * per:(i + 1) * per], ubm)
+                for i in range(PAR_SHARDS)]),
+            ("mesh.run + psum of a scalar", lambda: mesh.run(
+                lambda sh: sh.psum(one))),
+            ("the same on 4 CPU shards", lambda: cpu_mesh.run(
+                lambda sh: sh.psum(one_cpu))),
+            (f"sharded_stats_fn {PAR_SHARDS} x 1", lambda: stats_fn(
+                xf, wf, ubm))):
+        counted(compare, fn)
+        times[label] = statistics.median(
+            counted(compare, lambda: cuda_ms(fn))[0] for _ in range(3))
+    print("  parallel: at 1M frames, K1 default: " + "; ".join(
+        f"{k} {v:.3f} ms" for k, v in times.items())
+        + " (CUDA events on the caller's stream, median of 3)")
+    for kname, kv in kernels.items():
+        kv["launches_by_path"]["parallel"] = path[kname]
+        kv["launches_by_path"]["parallel-2-processes"] = sum(
+            r.get(kname, 0) for r in ranks.values())
+        kv["launches"] += path[kname]
+        kv["check_launches"] += compare[kname]
+    print(f"  parallel: launches {dict(path)}; comparison launches "
+          f"{dict(compare)}")
+
+
+# -- phase 15: the oracle parity run -----------------------------------------
+
+ORACLE_TOL = 1e-3       # per-trial LLR (absolute); i-vectors (of scale)
+
+
+def run_oracle_parity(kernels, dev) -> None:
+    """Phase 15: scripts/torch_oracle_parity.py at scale small on the
+    card: the port's CLI chain against the f64 oracle, stage by stage."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_oracle_parity", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "scripts", "torch_oracle_parity.py"))
+    top = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(top)
+    ck.reset_launch_counts()
+    res = top.run(temp_dir("lia_chip_smoke_oracle_"), top.SCALES["small"],
+                  dev.type, threads=os.cpu_count() or 8)
+    launches = dict(ck.launch_counts)
+    r = res["results"]
+    print(f"  oracle: K={res['shapes']['K']}, D={res['shapes']['D']}, "
+          f"R={res['shapes']['R']}, {res['shapes']['n_trials']} trials; "
+          "walls s " + ", ".join(f"{k} {v:.2f}"
+                                 for k, v in res["wall_s"].items()))
+    for line in top.report(r):
+        print("  oracle: " + line)
+    check(r["score_llr"]["max"] <= ORACLE_TOL,
+          f"per-trial LLR within {ORACLE_TOL} of the oracle's")
+    check(r["ivector"]["max"] <= ORACLE_TOL * r["ivector_scale"],
+          f"i-vectors within {ORACLE_TOL} of the oracle's scale")
+    check(launches["em_stats_fused"] > 0 and launches["bw_stats_fused"] > 0,
+          f"the parity chain launched K1 and K2 ({launches})")
+    print(f"  oracle: launches {launches}")
+    for kname, kv in kernels.items():
+        kv["launches_by_path"]["oracle"] = launches.get(kname, 0)
+        kv["launches"] += launches.get(kname, 0)
+
+
 def cuda_ms(fn) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -2531,13 +3072,18 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        # one nvcc per source, side by side; a failed build raises here
+        # one nvcc per source and one g++ per native source (the feature
+        # reader, the parity oracle), side by side; a failed build raises
+        host = [pool.submit(_build.host_build, name)
+                for name in _build.GXX_FLAGS]
         list(pool.map(_build.library, _build.SOURCES))
+        host = [f.result() for f in host]
     print(f"kernels built in {time.perf_counter() - t0:.1f} s (nvcc "
           f"{_build.build_seconds:.1f} s summed over "
           f"{len(_build.SOURCES)} sources)"
           if _build.build_seconds is not None
           else "kernels: libraries already built")
+    print("native builds: " + ", ".join(p.name for p in host))
     phase("build", t0)
 
     rng = np.random.default_rng(0)
@@ -2687,8 +3233,10 @@ def main() -> int:
     chains = {}
     for tier in ("", "fastStats"):
         ck.reset_launch_counts()
+        tnative.reset_read_counts()
         chains[tier] = run_cli_chain(workdir, lists, tier)
         chains[tier]["launches"] = dict(ck.launch_counts)
+        check_native_reads(f"chain [{tier or 'default'}]")
     # the fastMath key reaches K1 through TrainWorld only (no tool
     # passes it to K2): TrainWorld alone in both fastMath tiers
     fm_runs = {}
@@ -2894,6 +3442,17 @@ def main() -> int:
     t0 = time.perf_counter()
     run_gmm_svm(gu_dir, gu_lists, diar_dir, diar_frames, kernels, dev)
     phase("gmm-svm", t0)
+
+    # 14. numThread: meshes of shards of the card against the serial
+    # functions, the tools with numThread 4, two processes under gloo
+    t0 = time.perf_counter()
+    run_parallel(xu, mask, workdir, gu_dir, gu_lists, kernels, dev)
+    phase("parallel", t0)
+
+    # 15. the port's chain against the f64 oracle at scale small
+    t0 = time.perf_counter()
+    run_oracle_parity(kernels, dev)
+    phase("oracle", t0)
 
     print(smi[0])
     print(json.dumps({"kernels": list(kernels.values())}))

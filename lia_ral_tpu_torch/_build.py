@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+"""Build and load the hand-written CUDA kernels (csrc/*.cu), and build
+the repo's native C++ sources (native/*.cpp) that the port uses.
 
 Each source is compiled with nvcc into a shared library of its own with a
 plain C interface and loaded with ctypes.  The build happens at first
@@ -9,6 +10,13 @@ checkout builds once and an edited source rebuilds its own library only.
 different libraries compile side by side, one nvcc each.  Nothing here
 runs at import time: the CPU test suite imports every module of the
 package on machines without nvcc.
+
+``host_build(name)`` compiles ``native/<name>.cpp`` with g++ and the
+flags of ``native/Makefile`` into the same directory (never into
+``native/``): the feature reader ``liaio`` as a shared library
+(``io/native.py``), the f64 parity oracle as a program
+(``scripts/torch_oracle_parity.py``).  A failed build raises with the
+compiler's output.
 """
 
 from __future__ import annotations
@@ -35,7 +43,14 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_locks = {name: threading.Lock() for name in SOURCES}
+# native/Makefile's own flags: line 2 for the library, lines 21-22 for
+# the oracle (no -ffast-math: it is the careful f64 side of a parity run)
+NATIVE_DIR = _PKG.parent / "native"
+GXX_FLAGS = {"liaio": ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall"),
+             "oracle": ("-O3", "-march=native", "-std=c++17", "-Wall")}
+GXX_LIBS = {"liaio": (), "oracle": ("-lpthread",)}
+
+_locks = {name: threading.Lock() for name in (*SOURCES, *GXX_FLAGS)}
 _seconds_lock = threading.Lock()
 _libs: dict = {}
 build_seconds: float | None = None     # wall time of this process's builds
@@ -123,3 +138,52 @@ def library(name: str = "gmm_stats"):
         _bind(name, lib)
         _libs[name] = lib
         return lib
+
+
+def _host_key() -> bytes:
+    """The build host's CPU flags: a -march=native program is keyed by
+    them, so a copy of the build directory on another machine rebuilds."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            return next((ln for ln in f if ln.startswith("flags")),
+                        "").encode()
+    except OSError:
+        return b""
+
+
+def host_build(name: str) -> Path:
+    """``native/<name>.cpp`` built by g++ (``GXX_FLAGS``) into
+    ``BUILD_DIR``, once per source, flags and host; returns its path."""
+    src = NATIVE_DIR / f"{name}.cpp"
+    flags = GXX_FLAGS[name]
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(flags).encode())
+    if "-march=native" in flags:
+        h.update(_host_key())
+    shared = "-shared" in flags
+    out = BUILD_DIR / (f"lib{name}_{h.hexdigest()[:16]}.so" if shared
+                       else f"{name}_{h.hexdigest()[:16]}")
+    with _locks[name]:
+        if out.exists():
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [os.environ.get("CXX", "g++"), *flags, "-o", tmp, str(src),
+               *GXX_LIBS[name]]
+        try:
+            try:
+                proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+            except OSError as e:
+                raise RuntimeError(f"cannot run {cmd[0]} to build {src}: "
+                                   f"{e}") from e
+            if proc.returncode != 0:
+                raise RuntimeError(f"{cmd[0]} failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{proc.stdout}")
+            os.chmod(tmp, 0o755)
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        return out

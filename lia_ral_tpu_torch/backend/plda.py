@@ -220,10 +220,12 @@ def plda_em_iteration(model: PldaModel, dev: DevSet) -> PldaModel:
 def plda_train(generator: torch.Generator | None, dev: DevSet, rank_f: int,
                rank_g: int = 0, n_iterations: int = 10,
                verbose: bool = False,
-               init: PldaModel | None = None) -> PldaModel:
+               init: PldaModel | None = None, mesh=None) -> PldaModel:
     """Full trainer (reference PLDA.cpp:74-99: center → EM loop → save).
     ``init`` warm-starts EM from a loaded model (pldaLoadInitMatrices);
-    without it F and G are drawn from ``generator``."""
+    without it F and G are drawn from ``generator``.  ``mesh`` shards the
+    session axis of each EM iteration over its "data" axis (the threaded
+    getExpectedValues, PldaTools.cpp:2647)."""
     x = dev.vectors
     if init is not None:
         model = init.to(x.device)
@@ -234,7 +236,11 @@ def plda_train(generator: torch.Generator | None, dev: DevSet, rank_f: int,
                                data_mean=mean, data_cov=(xc.T @ xc)
                                / x.shape[0], device=x.device)
     for it in range(n_iterations):
-        model = plda_em_iteration(model, dev)
+        if mesh is not None:
+            from ..parallel.sharding import sharded_plda_em_iteration
+            model = sharded_plda_em_iteration(mesh, model, dev)
+        else:
+            model = plda_em_iteration(model, dev)
         if verbose:
             print(f"PLDA EM it {it}: |F|={float(model.f.abs().mean()):.5f} "
                   f"tr(Sigma)={float(torch.trace(model.sigma)):.4f}")

@@ -41,6 +41,7 @@ through the kernels.
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
@@ -54,6 +55,7 @@ LN_2 = math.log(2.0)
 TIERS = ("", "fastStats", "fastMath", "fastMath+fastStats")   # by kernel id
 launch_counts = {f"{k}[{t}]" if t else k: 0
                  for k in ("em_stats_fused", "bw_stats_fused") for t in TIERS}
+_count_lock = threading.Lock()      # the shards of a mesh launch in threads
 
 
 def reset_launch_counts() -> None:
@@ -263,7 +265,8 @@ def _launch(name: str, tier: int, x: torch.Tensor, call) -> None:
     with torch.cuda.device(x.device):
         err = call(torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, name)
-    launch_counts[_count_key(name, tier)] += 1
+    with _count_lock:
+        launch_counts[_count_key(name, tier)] += 1
 
 
 def em_stats_fused(x: torch.Tensor, w: torch.Tensor, gmm: GmmDiag,

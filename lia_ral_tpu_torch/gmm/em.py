@@ -309,6 +309,49 @@ def train_model(generator: torch.Generator, x: torch.Tensor,
     return gmm
 
 
+def train_model_streams(generator: torch.Generator,
+                        streams: list[tuple[torch.Tensor, torch.Tensor]],
+                        stream_weights: list[float], init: GmmDiag,
+                        cfg: TrainCfg, stats_fn=None, chunk: int = 4096,
+                        verbose: bool = False) -> GmmDiag:
+    """Multi-stream weighted EM — reference trainModelStream
+    (TrainTools.cpp:1030-1110): per iteration each stream contributes a
+    bagged-subsampled stat accumulator scaled by its stream weight before
+    the merge (stream weights balance heterogeneous data sources).  The
+    masks are drawn one a stream an iteration, streams in order.
+
+    ``stats_fn`` as in ``train_model``: kernel K1 on CUDA tensors by
+    default; a mesh's ``parallel.sharding.sharded_stats_fn`` shards it."""
+    if stats_fn is None:
+        stats_fn = default_stats_fn(chunk=chunk)
+    _, gcov = global_mean_cov(torch.cat([x for x, _ in streams]),
+                              torch.cat([w for _, w in streams]))
+    gmm = init
+    k, d = init.means.shape
+    for it in range(cfg.nb_train_it):
+        floor = schedule_value(cfg.init_variance_flooring,
+                               cfg.final_variance_flooring,
+                               cfg.nb_train_it, it)
+        ceil = schedule_value(cfg.init_variance_ceiling,
+                              cfg.final_variance_ceiling,
+                              cfg.nb_train_it, it)
+        merged = EmStats.zeros(k, d, device=init.device)
+        for (x, w), sw in zip(streams, stream_weights):
+            mask = bagged_frame_mask(generator, w,
+                                     cfg.bagged_frame_probability,
+                                     cfg.bagged_minimal_length,
+                                     cfg.bagged_maximal_length)
+            st = stats_fn(x, mask, gmm)
+            merged = merged.merge(EmStats(*(a * sw for a in (
+                st.n, st.sum_x, st.sum_xx, st.llk, st.count))))
+        if verbose:
+            print(f"stream-it {it}: meanLLK={float(merged.mean_llk()):.5f}")
+        gmm = _m_step_with_variance_control(merged, floor, ceil, gcov)
+    if cfg.component_reduction and cfg.target_distrib_count > 0:
+        gmm = reduce_model(gmm, cfg.target_distrib_count)
+    return gmm
+
+
 def streaming_global_mean_cov(loader, device=None
                               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Global weighted mean/cov in one streaming pass over the loader's

@@ -1,7 +1,8 @@
 """Feature-file I/O: SPRO3 / SPRO4 / RAW readers and writers + FeatureServer.
 
-Port of ``lia_ral_tpu/io/features.py``: the same readers and writers,
-numpy only (the native ``liaio`` loader is left out).
+Port of ``lia_ral_tpu/io/features.py``: the same readers and writers;
+``read_feature_file`` reads through the native ``liaio`` library
+(``io/native.py``) first and parses with numpy what it refuses.
 
 Re-provides the capability of the ALIZE FeatureServer / FeatureFileReader
 family that every reference tool consumes (SURVEY.md §1.1; usage e.g.
@@ -141,11 +142,33 @@ def _read_htk(raw: bytes) -> FeatureFile:
                        rate=float(rate), flag=parm_kind)
 
 
+def _spro_meta(path: str, fmt: str, big_endian: bool
+               ) -> tuple[float, str, int]:
+    """(rate, kind, flag) from a SPRO3/SPRO4 header, as the numpy readers
+    return them (a RAW file has none: the defaults)."""
+    bo = ">" if big_endian else "<"
+    if fmt == "RAW":
+        return 100.0, "FBCEPSTRA", 0
+    with open(path, "rb") as f:
+        head = f.read(1 << 16)
+    if fmt == "SPRO3":
+        kind, _, _, flag = struct.unpack_from(bo + "4I", head)
+        return 100.0, SPRO3_KINDS.get(kind, "OTHER"), flag
+    off = 0
+    if head[:8] == b"<header>":
+        off = head.index(b"</header>") + len(b"</header>")
+        if off < len(head) and head[off] == 0x0A:
+            off += 1
+    flag, rate = struct.unpack_from(bo + "If", head, off + 2)
+    return float(rate), "FBCEPSTRA", flag
+
+
 def read_feature_file(
     path: str,
     fmt: str = "SPRO4",
     big_endian: bool = False,
     vect_size: int = 0,
+    use_native: bool = True,
 ) -> FeatureFile:
     """Read one feature file.  ``fmt`` ∈ {SPRO3, SPRO4, RAW, HTK}.
 
@@ -153,17 +176,35 @@ def read_feature_file(
     declares SPRO4 for a SPRO3-headered file), so SPRO3/SPRO4 fall back to
     each other when the declared parse fails.
 
-    The payload is parsed with numpy (the JAX package's native ``liaio``
-    loader is not ported; its pure-numpy fallback, kept here, gives the
-    same arrays).
+    The payload goes through the native liaio library first (the
+    reference's runtime is native C++; see native/liaio.cpp); HTK and
+    whatever the native reader refuses are parsed with numpy.  The two
+    give the same arrays; ``io.native.read_counts`` counts each path.
     """
+    from .native import count_read, read_features_native
+
     fmt_u = fmt.upper()
-    if fmt_u == "HTK":
-        with open(path, "rb") as f:
-            return _read_htk(f.read())
+    if fmt_u != "HTK" and use_native:
+        order = ([fmt_u] if fmt_u == "RAW"
+                 else (["SPRO3", "SPRO4"] if fmt_u == "SPRO3"
+                       else ["SPRO4", "SPRO3"]))
+        for f_try in order:
+            data = read_features_native(path, f_try, big_endian, vect_size)
+            if data is not None:
+                return FeatureFile(data, *_spro_meta(path, f_try,
+                                                     big_endian))
+    ff = _read_numpy(path, fmt_u, big_endian, vect_size)
+    count_read("numpy")
+    return ff
+
+
+def _read_numpy(path: str, fmt: str, big_endian: bool, vect_size: int
+                ) -> FeatureFile:
+    """The numpy readers of ``read_feature_file``."""
     with open(path, "rb") as f:
         raw = f.read()
-    fmt = fmt.upper()
+    if fmt == "HTK":
+        return _read_htk(raw)
     if fmt == "RAW":
         return _read_raw(raw, vect_size, big_endian)
     readers = ([_read_spro3, _read_spro4] if fmt == "SPRO3"

@@ -1,10 +1,11 @@
-"""Shared tool plumbing: feature/label loading per config, the device, the
-stats tier (port of lia_ral_tpu/tools/common.py).
+"""Shared tool plumbing: feature/label loading per config, the device,
+the mesh and the stats tier (port of lia_ral_tpu/tools/common.py).
 
 Replaces the per-tool boilerplate of the reference mains
 (FeatureServer construction + initializeClusters + verifyClusterFile,
-e.g. TrainWorld.cpp:66-77).  Feature files are read with numpy; the JAX
-package's native batched loader is not ported.
+e.g. TrainWorld.cpp:66-77).  Feature files go through the native liaio
+reader (``io/native.py``), a batch of files at a time in
+``load_files_batch``.
 """
 
 from __future__ import annotations
@@ -87,25 +88,37 @@ def load_features_and_mask(names: list[str], cfg: Config
     return fs, mask
 
 
-def load_files_batch(names: list[str], cfg: Config
+def load_files_batch(names: list[str], cfg: Config, batch: int = 64
                      ) -> list[np.ndarray | None]:
-    """Per-file (T,D) float32 feature arrays for a name list, in input
-    order (featureServerMask applied), None for unreadable files."""
+    """Per-file feature arrays for a name list, read ``batch`` files at a
+    time by the native batched loader (liaio_read_batch's thread pool),
+    with the per-file reader for what it refuses — the data-loader hot
+    path of thousands-of-files NIST runs.  Returns (T,D) float32 arrays
+    in input order (featureServerMask applied), None for unreadable
+    files."""
+    from ..io.native import read_features_batch_native
     fmt = cfg.get_str("loadFeatureFileFormat", "SPRO4")
     mask_cfg = (cfg.get_str("featureServerMask")
                 if cfg.exists("featureServerMask") else None)
     big_endian = cfg.get_bool("bigEndian", False)
     vect_size = cfg.get_int("loadFeatureFileVectSize", 0)
-    out: list[np.ndarray | None] = []
-    for name in names:
-        try:
-            x = read_feature_file(feature_path(name, cfg), fmt=fmt,
-                                  big_endian=big_endian,
-                                  vect_size=vect_size).data
-        except Exception:
-            out.append(None)
-            continue
-        out.append(apply_mask(x, mask_cfg))
+    paths = [feature_path(n, cfg) for n in names]
+    out: list[np.ndarray | None] = [None] * len(names)
+    for s0 in range(0, len(paths), batch):
+        grp = paths[s0:s0 + batch]
+        res = read_features_batch_native(grp, fmt, big_endian, vect_size)
+        for j in range(len(grp)):
+            x = res[j] if res is not None else None
+            if x is None:
+                # the per-file reader keeps the SPRO3/SPRO4 header
+                # sniffing and the HTK path
+                try:
+                    x = read_feature_file(grp[j], fmt=fmt,
+                                          big_endian=big_endian,
+                                          vect_size=vect_size).data
+                except Exception:
+                    continue
+            out[s0 + j] = apply_mask(x, mask_cfg)
     return out
 
 
@@ -199,14 +212,40 @@ def setup_verbose(cfg: Config) -> bool:
     return cfg.get_bool("verbose", False)
 
 
+def resolve_mesh(cfg: Config):
+    """numThread → a ("data",) mesh over min(numThread, visible devices)
+    of the tool's device type, or None for one device (the reference's
+    pthread pool size, AccumulateTVStat.cpp:1694, PldaTools.cpp:2647).
+    With one card, numThread > 1 gives None, as the JAX package gives
+    with one device; ``parallel.mesh.visible_devices`` is what a test
+    patches to run several shards on one device."""
+    n_thread = cfg.get_int("numThread", 1)
+    if n_thread <= 1:
+        return None
+    from ..parallel import mesh as pmesh
+
+    devs = pmesh.visible_devices(resolve_device(cfg).type)
+    n = min(n_thread, len(devs))
+    if n <= 1:
+        return None
+    return pmesh.make_mesh(n_data=n, devices=devs[:n])
+
+
 def resolve_stats_fn(cfg: Config):
-    """The EM stats pass the config asks for: ``fastMath``/``fastStats``
-    pick the kernels' tiers (``gmm.em.default_stats_fn``); None (the
-    default tier) otherwise.  ``numThread`` sized the reference's pthread
-    pool and the JAX package's device mesh; the port drives one card and
-    runs single-device whatever ``numThread`` says."""
+    """The EM stats pass the config asks for.  ``numThread`` shards the
+    frame axis over ``resolve_mesh``'s mesh and sums the stats
+    (AccumulateStat.cpp:236), each shard K1 in the tier of
+    ``fastMath``/``fastStats`` (``gmm.em.default_stats_fn``); without a
+    mesh the tier's stats pass, or None in the default tier.  The JAX
+    function drops the tier keys when numThread > 1 finds one device; the
+    port keeps them."""
     fast_math = cfg.get_bool("fastMath", False)
     fast_stats = cfg.get_bool("fastStats", False)
+    mesh = resolve_mesh(cfg)
+    if mesh is not None:
+        from ..parallel.sharding import sharded_stats_fn
+        return sharded_stats_fn(mesh, fast_math=fast_math,
+                                fast_stats=fast_stats)
     if not (fast_math or fast_stats):
         return None
     from ..gmm.em import default_stats_fn

@@ -28,7 +28,7 @@ from ..config import Config
 from ..io.lists import read_ndx
 from ..io.matrix import read_matrix_file, write_matrix_file
 from ..io.nist import ScoreLine, write_nist_scores
-from .common import resolve_device, setup_verbose
+from .common import resolve_device, resolve_mesh, setup_verbose
 from .iv_norm import (efr_param_paths, load_dev_set, load_vectors,
                       save_efr_params)
 from .total_variability import matrix_out_path
@@ -163,11 +163,19 @@ def main(cfg: Config) -> list[ScoreLine]:
             plda = plda_train(gen, dev,
                               cfg.get_int("pldaEigenVoiceNumber", 150),
                               cfg.get_int("pldaEigenChannelNumber", 0),
-                              cfg.get_int("pldaNbIt", 10), verbose)
+                              cfg.get_int("pldaNbIt", 10), verbose,
+                              mesh=resolve_mesh(cfg))
         ns = (torch.as_tensor(n_sessions, dtype=torch.float32, device=device)
               if mode == "plda"
               else torch.ones(len(model_names), device=device))
-        scores = plda_llr(plda, enroll, ns, segs)
+        mesh = resolve_mesh(cfg)
+        if mesh is not None:
+            # numThread → model-axis sharded batched scoring (the
+            # reference's threaded scoring loop, PldaTools.cpp:4061)
+            from ..parallel.sharding import sharded_plda_llr
+            scores = sharded_plda_llr(mesh, plda, enroll, ns, segs)
+        else:
+            scores = plda_llr(plda, enroll, ns, segs)
     else:
         raise ValueError(f"unknown scoring mode {mode}")
 

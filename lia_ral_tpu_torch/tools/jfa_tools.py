@@ -31,7 +31,7 @@ from ..gmm.model import GmmDiag
 from ..io.lists import read_ndx
 from ..io.matrix import read_matrix_file, write_matrix_file
 from .common import (file_frame_mask, load_files_batch, mixture_path,
-                     resolve_device, setup_verbose)
+                     resolve_device, resolve_mesh, setup_verbose)
 from .total_variability import matrix_out_path
 
 
@@ -150,8 +150,13 @@ def eigen_voice_main(cfg: Config) -> JfaModel:
     # with immutable stats the pairing is a no-op kept for flow parity
     snapshot = store_accs(stats)
     ortho = cfg.get_bool("orthonormalizeV", False)   # EigenVoice.cpp:143
+    mesh = resolve_mesh(cfg)    # numThread → speaker-sharded V substep
     for it in range(cfg.get_int("nbIt", 10)):
-        model, _ = jfa_v_iteration(stats, model, x, z)
+        if mesh is not None:
+            from ..parallel.sharding import sharded_jfa_v_iteration
+            model, _ = sharded_jfa_v_iteration(mesh, stats, model, x, z)
+        else:
+            model, _ = jfa_v_iteration(stats, model, x, z)
         if ortho:
             model = orthonormalize_v(model)
         stats = restore_accs(snapshot)
@@ -171,9 +176,14 @@ def eigen_channel_main(cfg: Config) -> JfaModel:
         model = model.replace(v=load_subspace(cfg, "eigenVoiceMatrix", gmm))
     x, z = _zero_latents(stats, gmm, rank_u)
     # reference EigenChannel: Y with V fixed, then the U substep
+    mesh = resolve_mesh(cfg)    # numThread → session-sharded U substep
     for it in range(cfg.get_int("nbIt", 10)):
         y, _ = estimate_y(stats, model, x, z)
-        model, x = jfa_u_iteration(stats, model, y, z)
+        if mesh is not None:
+            from ..parallel.sharding import sharded_jfa_u_iteration
+            model, x = sharded_jfa_u_iteration(mesh, stats, model, y, z)
+        else:
+            model, x = jfa_u_iteration(stats, model, y, z)
         if verbose:
             print(f"EigenChannel it {it}: |U|="
                   f"{float(model.u.abs().mean()):.6f}")

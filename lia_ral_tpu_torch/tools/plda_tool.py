@@ -16,7 +16,7 @@ import torch
 from ..backend.ivnorm import length_norm
 from ..backend.plda import PldaModel, plda_train
 from ..config import Config
-from .common import resolve_device, setup_verbose
+from .common import resolve_device, resolve_mesh, setup_verbose
 from .iv_norm import load_dev_set
 
 
@@ -50,7 +50,8 @@ def main(cfg: Config) -> PldaModel:
     model = plda_train(
         gen, dev, rank_f=cfg.get_int("pldaEigenVoiceNumber", 150),
         rank_g=cfg.get_int("pldaEigenChannelNumber", 0),
-        n_iterations=cfg.get_int("pldaNbIt", 10), verbose=verbose, init=init)
+        n_iterations=cfg.get_int("pldaNbIt", 10), verbose=verbose, init=init,
+        mesh=resolve_mesh(cfg))
     model.save(cfg.get_str("pldaModelFilename", "plda_model.npz"))
     # reference-format matrix set (PldaModel::saveModel naming keys)
     model.save_reference(

@@ -20,13 +20,14 @@ import torch
 from ..config import Config
 from ..fa.stats import BwStats, bw_stats_bucketed, load_stats, save_stats
 from ..fa.tv import (TvModel, approximate_tctc, eigen_decompose_w, init_t,
-                     tv_em_iteration, verify_em_llk, weighted_cov)
+                     min_divergence, tv_em_iteration, tv_m_step,
+                     verify_em_llk, weighted_cov)
 from ..gmm.model import GmmDiag
 from ..io.lists import read_ndx
 from ..io.matrix import write_matrix_file
 from .common import (file_frame_mask, load_features_and_mask,
                      load_files_batch, mixture_path, resolve_device,
-                     setup_verbose)
+                     resolve_mesh, setup_verbose)
 
 
 def matrix_out_path(name: str, cfg: Config) -> str:
@@ -120,10 +121,20 @@ def main(cfg: Config) -> TvModel:
     if cfg.get_bool("saveInitMatrix", False):
         model.save(matrix_out_path(
             cfg.get_str("totalVariabilityMatrix") + "_init", cfg))
+    # numThread > 1 → shard the session axis of the E-step over the mesh
+    # (reference threaded estimateAandC, AccumulateTVStat.cpp:1694)
+    mesh = resolve_mesh(cfg)
+    chunk = cfg.get_int("speakerChunk", 64)
     for it in range(nb_it):
-        model, _ = tv_em_iteration(stats, model,
-                                   chunk=cfg.get_int("speakerChunk", 64),
-                                   min_div=min_div)
+        if mesh is not None:
+            from ..parallel.sharding import sharded_tv_e_step
+            _, acc = sharded_tv_e_step(mesh, stats, model, chunk=chunk)
+            model = tv_m_step(model, acc)
+            if min_div:
+                model = min_divergence(model, acc)
+        else:
+            model, _ = tv_em_iteration(stats, model, chunk=chunk,
+                                       min_div=min_div)
         if verbose:
             print(f"TV EM it {it}: |T|={float(model.t.abs().mean()):.5f}")
         if cfg.exists("computeLLK") and not cfg.get_bool("loadAccs", False):
