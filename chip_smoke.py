@@ -216,15 +216,38 @@ printed as it ends; any failure raises and the exit code is non-zero:
             f64 oracle stage by stage; per-trial LLR within 1e-3 and
             i-vectors within 1e-3 of scale; the deviations and both EER
             deltas printed beside the JAX package's.
+16. modes   every other arithmetic of K1 and K2 (the 47 modes of
+            ``cuda_kernels.all_modes`` beyond the four tiers: stats_pass
+            bf16 / bf16x2p / bf16x2x / bf16sr, exp_mode exp / fast2,
+            mxu_precision highest, in every combination) at full width on
+            the problem of scripts/torch_sweep_fused.py (1M frames; K2 as
+            500 × 2000; K=2048, D=39; the JAX sweeps' draws): each kernel
+            against its plain version (the one-pass budgets, 2e-3 of
+            scale, for one-pass, two-pass and stochastically rounded
+            stats; the default's for three- and six-pass stats), kernel
+            and plain timed (CUDA events, median of 3), the bound of its
+            logit and stats passes, and the largest relative occupancy
+            error against the float64 oracle of the sweeps (65,536 frames;
+            16 utterances), printed for the four tiers too.  For
+            "bf16sr": two calls with one seed equal to the digit, two
+            seeds different; on the plain versions (products rounded to
+            nearest in f32), the mean signed occupancy error over K
+            against float64 over 64 seeds within 4 standard errors of 0
+            and smaller in magnitude than the deterministic bf16 pass's
+            bias; the kernels' own bias printed beside it (the tensor
+            cores' f32 accumulation shifts every mode alike).
 
-The line before the last is one JSON object of per-kernel results
-(``launches`` summed over the main paths of phases 6, 8-13, 14 and 15,
-by path in ``launches_by_path``, where "parallel-2-processes" counts the
-two ranks' launches apart; ``check_launches`` from the comparisons of
-phases 3, 4, 7, 8, 11, 13 and 14; ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
-``library_ms`` from phase 7, the Viterbi kernel's from phase 11, the SVM
-dual kernel's from phase 13); the last line is {"ok": true, "device":
-{...}}.
+The line before the last is one JSON object of per-kernel results, one
+entry per kernel and arithmetic (``launches`` summed over the main paths
+of phases 6, 8-13, 14 and 15, by path in ``launches_by_path``, where
+"parallel-2-processes" counts the two ranks' launches apart; 0 for every
+arithmetic of phase 16, which no tool reaches; ``check_launches`` from
+the comparisons of phases 3, 4, 7, 8, 11, 13, 14 and 16; ``ms``,
+``plain_ms``, ``bound_ms``, ``bound_by``, ``library_ms`` from phase 7
+for the tiers and phase 16 for the other arithmetics, with
+``n_rel_err_f64`` from phase 16; the Viterbi kernel's from phase 11,
+the SVM dual kernel's from phase 13); the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -325,15 +348,24 @@ HBM_BYTES_PER_S, BF16_FLOPS_PER_S = 3.35e12, 989e12     # H100 SXM peaks
 
 def bound_ms(kernel: str, tier: str, n: int, k: int, d: int,
              utterances: int = 1) -> tuple[float, str]:
+    """``passes_bound_ms`` of a tier: one or three bf16 passes for the
+    logits, and for the stats three in the default tier, one in the
+    others (fastMath's stats are one pass too)."""
+    return passes_bound_ms(kernel, 1 if "fastMath" in tier else 3,
+                           1 if tier else 3, n, k, d, utterances)
+
+
+def passes_bound_ms(kernel: str, logit_passes: int, stat_passes: int,
+                    n: int, k: int, d: int,
+                    utterances: int = 1) -> tuple[float, str]:
     """The least time the card could take for one call: the larger of the
     bytes (x, w, the GMM and the outputs, each once) over the memory rate
     and the flops of the two products (logits over 2D+1 design columns;
     stats over the 2D+1 columns K1 returns, or the D+1 that K2 returns),
-    each in the tier's one or three bf16 passes, over the tensor cores'
-    bf16 rate.  n counts all frames (zero-weight ones are computed too).
-    Returns (ms, "bytes" or "operations")."""
-    logit_passes = 1 if "fastMath" in tier else 3
-    stat_passes = 1 if tier else 3      # fastMath's stats are one pass too
+    each in its bf16 passes (1, 3 or 6 for the logits; 1, 2, 3 or 6 for
+    the stats), over the tensor cores' bf16 rate.  n counts all frames
+    (zero-weight ones are computed too).  Returns (ms, "bytes" or
+    "operations")."""
     k1 = kernel == "em_stats_fused"
     stat_cols = 2 * d + 1 if k1 else d + 1
     flops = 2 * n * k * ((2 * d + 1) * logit_passes
@@ -362,6 +394,12 @@ def n_rtol(tier: str) -> float:
     """Occupancy budget: 1e-4 for the exact sums; fastMath alone takes n
     from a column of its one-pass product and gets that product's 2e-3."""
     return 2e-3 if tier == "fastMath" else 1e-4
+
+
+def shown(counts) -> dict:
+    """The launch counts that are not 0 (the kernels' counts have a key
+    for each of K1's and K2's 51 arithmetics)."""
+    return {k: v for k, v in counts.items() if v}
 
 
 def check(ok: bool, what: str) -> None:
@@ -880,7 +918,7 @@ def run_gmm_ubm(kernels, dev):
     print("  gmm-ubm: K1 device ms (launches) " + ", ".join(
         f"{k} {k1_ms[k]:.2f} ({k1_launches[k]})" for k in walls
         if k1_launches[k]))
-    print(f"  gmm-ubm: launches {launches}")
+    print(f"  gmm-ubm: launches {shown(launches)}")
     # 500 files x 10 EM iterations; 3 EM iterations; 50 models x 3
     for tool, count in (("EnergyDetector", 5000), ("TrainWorld", 3),
                         ("TrainTarget", 150)):
@@ -1235,12 +1273,13 @@ def run_backend(d, lists, kernels, dev) -> None:
     want = k2_batches([T_UTT] * len(names))
     check(launches["bw_stats_fused"] == want and sum(launches.values())
           == want, f"K2 launched {want} times on the back-end path, by the "
-          f"eigenDecomposition IvExtractor, and nothing else ({launches})")
+          "eigenDecomposition IvExtractor, and nothing else "
+          f"({shown(launches)})")
     print("  backend: tool wall s " + ", ".join(
         f"{k} {v:.3f}" for k, v in walls.items()))
     print("  backend: K2 device ms " + ", ".join(
         f"{k} {v:.2f}" for k, v in k2_ms.items() if v)
-        + f"; launches {launches}")
+        + f"; launches {shown(launches)}")
     for kname, kv in kernels.items():
         kv["launches_by_path"]["backend"] = launches[kname]
         kv["launches"] += launches[kname]
@@ -1328,7 +1367,7 @@ def run_jfa(d, lists, raw_eer, kernels, dev) -> None:
     print("  jfa: K2 device ms (launches) " + ", ".join(
         f"{k} {k2_ms[k]:.2f} ({k2_launches[k]})" for k in walls
         if k2_launches[k]))
-    print(f"  jfa: launches {launches}")
+    print(f"  jfa: launches {shown(launches)}")
     n_segs = len(read_xlist(lists["main"]))
     per_seg = {mode: 1e3 * walls[f"ComputeTest[{mode}]"] / n
                for mode, n in (("jfa", n_segs), ("lfa", LFA_SEGS))}
@@ -2055,7 +2094,7 @@ def run_serving(gu_dir, gu_lists, kernels, dev) -> None:
           f"({launches['em_stats_fused']})")
     check(all(v == 0 for k, v in launches.items() if k != "em_stats_fused"),
           "only the default K1 launched on the serving path")
-    print(f"  serving: launches {launches}")
+    print(f"  serving: launches {shown(launches)}")
     for kname, kv in kernels.items():
         got = launches.get(kname, 0)
         kv["launches_by_path"]["serving"] = got
@@ -2412,7 +2451,7 @@ def run_gmm_svm(gu_dir, gu_lists, diar_dir, diar_frames, kernels, dev):
           "ms) " + ", ".join(
               f"{k} {launches[k][0]} ({k_ms[k][0]:.2f}) / {launches[k][1]} "
               f"({k_ms[k][1]:.2f})" for k in walls if any(launches[k])))
-    print(f"  gmm-svm: launches {main}")
+    print(f"  gmm-svm: launches {shown(main)}")
     want = {label: (0, 0) for label in walls}
     want.update({"TrainTarget[outputAdaptParam]": (3 * (len(train)
                                                         + len(tests)), 0),
@@ -2909,6 +2948,11 @@ def run_parallel(xu, mask, workdir, gu_dir, gu_lists, kernels, dev):
             name + "mean", "--numThread", str(threads)], {})
         return read_matrix_file(os.path.join(out, name + ".matx"))
 
+    # The blocks cached on the library checks' shard streams (tens of
+    # GiB) stay: the tools' new shard threads make their cuSOLVER handles
+    # under them (parallel/mesh.py _thread_handles).
+    print(f"  parallel: {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB "
+          "reserved by PyTorch after the library checks")
     ck.reset_launch_counts()
     t_1 = tv_tool("TVnt1", 1)
     t_4u = tv_tool("TVnt4u", PAR_SHARDS)
@@ -2976,8 +3020,19 @@ def run_parallel(xu, mask, workdir, gu_dir, gu_lists, kernels, dev):
             r.get(kname, 0) for r in ranks.values())
         kv["launches"] += path[kname]
         kv["check_launches"] += compare[kname]
-    print(f"  parallel: launches {dict(path)}; comparison launches "
-          f"{dict(compare)}")
+    print(f"  parallel: launches {shown(path)}; comparison launches "
+          f"{shown(compare)}")
+
+
+def load_script(name: str):
+    """scripts/<name>.py (an import-safe script) as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "scripts", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 # -- phase 15: the oracle parity run -----------------------------------------
@@ -2988,13 +3043,7 @@ ORACLE_TOL = 1e-3       # per-trial LLR (absolute); i-vectors (of scale)
 def run_oracle_parity(kernels, dev) -> None:
     """Phase 15: scripts/torch_oracle_parity.py at scale small on the
     card: the port's CLI chain against the f64 oracle, stage by stage."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "torch_oracle_parity", os.path.join(os.path.dirname(
-            os.path.abspath(__file__)), "scripts", "torch_oracle_parity.py"))
-    top = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(top)
+    top = load_script("torch_oracle_parity")
     ck.reset_launch_counts()
     res = top.run(temp_dir("lia_chip_smoke_oracle_"), top.SCALES["small"],
                   dev.type, threads=os.cpu_count() or 8)
@@ -3011,11 +3060,273 @@ def run_oracle_parity(kernels, dev) -> None:
     check(r["ivector"]["max"] <= ORACLE_TOL * r["ivector_scale"],
           f"i-vectors within {ORACLE_TOL} of the oracle's scale")
     check(launches["em_stats_fused"] > 0 and launches["bw_stats_fused"] > 0,
-          f"the parity chain launched K1 and K2 ({launches})")
-    print(f"  oracle: launches {launches}")
+          f"the parity chain launched K1 and K2 ({shown(launches)})")
+    print(f"  oracle: launches {shown(launches)}")
     for kname, kv in kernels.items():
         kv["launches_by_path"]["oracle"] = launches.get(kname, 0)
         kv["launches"] += launches.get(kname, 0)
+
+
+# -- phase 16: every arithmetic of K1 and K2 at full width ---------------------
+
+SR_SEEDS = 64           # seeds of the stochastic-rounding bias check
+SR_MATCH = 0.5          # kernel-vs-plain over seed-to-seed distance, at most
+SR_ODD_T = 1999         # K2's odd utterance length (frame pairs split)
+
+
+def mode_rtols(mode) -> tuple[float, float]:
+    """(n, sums) budgets of an arithmetic against its plain version: the
+    default's (1e-4, 1e-3) where the stats product is three or six passes;
+    one rounding of p or xa·s to bf16 (one pass, either two-pass form,
+    stochastic rounding) can flip on an f32-level logit difference, so
+    2e-3 of scale there, n too unless it is the exact Σ p·s."""
+    if mode.stats in ("3", "6"):
+        return 1e-4, 1e-3
+    return (1e-4 if mode.nx else 2e-3), 2e-3
+
+
+def run_modes(kernels, dev) -> None:
+    """Phase 16: every arithmetic of K1 and K2 beyond the tiers against
+    its plain version at full width, timed, with its bound and its
+    occupancy error against float64 (the tiers' error printed too), and
+    the checks of stochastic rounding."""
+    fused = load_script("torch_sweep_fused")
+    sweep_bw = load_script("torch_sweep_bw")
+    x, w, gmm = fused.make_problem(dev)
+    xu = x.view(sweep_bw.S, sweep_bw.T, D)      # sweep_bw.make_problem's
+    wu = w.view(sweep_bw.S, sweep_bw.T)
+    xo, wo = x[:fused.NS], w[:fused.NS]
+    n64 = fused.f64_occupancy(xo, wo, gmm)
+    n64u = fused.f64_occupancy(xu[:sweep_bw.NS], wu[:sweep_bw.NS], gmm)
+    print(f"  modes: the sweeps' problem, {x.shape[0]} frames (K2 as "
+          f"{sweep_bw.S} x {sweep_bw.T}), K={K}, D={D}; float64 oracle on "
+          f"{fused.NS} frames and {sweep_bw.NS} utterances")
+    ck.reset_launch_counts()
+    for mode in ck.all_modes():
+        kw = mode.kwargs()
+        n_rtol_m, sum_rtol_m = mode_rtols(mode)
+        for kname in REPLACES:
+            name = entry(kname, mode.name)
+            if kname == "em_stats_fused":
+                err64 = fused.n_rel_err(ck.em_stats_fused(xo, wo, gmm,
+                                                          **kw).n, n64)
+            else:
+                err64 = fused.n_rel_err(ck.bw_stats_fused(
+                    xu[:sweep_bw.NS], wu[:sweep_bw.NS], gmm, **kw)[0], n64u)
+            kernels[name]["n_rel_err_f64"] = err64
+            if mode in ck.TIER_MODES:       # timed in phase 7
+                print(f"  {name}: n rel-err vs float64 {err64:.2e}")
+                continue
+            if kname == "em_stats_fused":
+                k_ms, p_ms, got, want = timed_pair(
+                    lambda: ck.em_stats_fused(x, w, gmm, **kw),
+                    lambda: ck.em_stats_reference(x, w, gmm, **kw))
+                err = check_stats(f"K1 {name}",
+                                  [("n", got.n, want.n, n_rtol_m),
+                                   ("sum_x", got.sum_x, want.sum_x,
+                                    sum_rtol_m),
+                                   ("sum_xx", got.sum_xx, want.sum_xx,
+                                    sum_rtol_m)],
+                                  (got.llk[None], want.llk[None]))
+                check(abs(float(got.count) - float(want.count))
+                      <= 1e-6 * float(want.count), f"K1 {name} count")
+                b_ms, b_by = passes_bound_ms(kname, mode.logit_passes,
+                                             mode.stat_passes, x.shape[0],
+                                             K, D)
+            else:
+                k_ms, p_ms, (n_k, f_k, l_k), (n_p, f_p, l_p) = timed_pair(
+                    lambda: ck.bw_stats_fused(xu, wu, gmm, **kw),
+                    lambda: ck.bw_stats_reference(xu, wu, gmm, **kw))
+                err = check_stats(f"K2 {name}",
+                                  [("n", n_k, n_p, n_rtol_m),
+                                   ("f", f_k, f_p, sum_rtol_m)], (l_k, l_p))
+                b_ms, b_by = passes_bound_ms(kname, mode.logit_passes,
+                                             mode.stat_passes, x.shape[0],
+                                             K, D, utterances=xu.shape[0])
+            kernels[name].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                 bound_by=b_by, max_abs_err=err)
+            print(f"  {name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+                  f"bound {b_ms:.3f} ms by {b_by} (bound / time = "
+                  f"{100 * b_ms / k_ms:.1f} %), n rel-err vs float64 "
+                  f"{err64:.2e}", flush=True)
+    check_sr(x, w, gmm, xu, wu, xo, wo, n64, fused.NS, dev)
+    for kname, kv in kernels.items():
+        if kname in ck.launch_counts:
+            kv["check_launches"] += ck.launch_counts[kname]
+
+
+def onehot_problem(dev, n: int, seed: int = 5):
+    """x (n, D), w (n,) and a GMM (K components) whose posteriors are
+    one-hot: component c has unit variances and the mean 20 times the bits
+    of c over the first log2(K) dimensions, frame f lies within 0.5 of the
+    mean of component f mod K, and one frame a component, drawn from the
+    whole range, has a weight in [0.5, 1.5) (the others 0).  Each frame's
+    other logits lie 190 (natural) below its own, so p is exactly 1 and 0:
+    every stats sum then has one nonzero term, bf16(p)·bf16(xa·s) = bf16(xa·w),
+    and is exact in any order of addition."""
+    rng = np.random.default_rng(seed)
+    bits = int(np.log2(K))
+    comp = np.arange(K)
+    means = np.zeros((K, D), np.float32)
+    means[:, :bits] = 20.0 * ((comp[:, None] >> np.arange(bits)) & 1)
+    f = np.arange(n)
+    x = (means[f % K] + rng.uniform(-0.5, 0.5, (n, D))).astype(np.float32)
+    w = np.zeros(n, np.float32)
+    w[comp + K * rng.integers(0, n // K, K)] = rng.uniform(0.5, 1.5, K)
+    return (torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev),
+            gmm_from_numpy(np.full(K, 1.0 / K), means, np.ones((K, D)), dev))
+
+
+def check_sr(x, w, gmm, xu, wu, xo, wo, n64, n_oracle, dev) -> None:
+    """Phase 16's checks of stochastic rounding (``"bf16sr"``) in the
+    kernels themselves: reruns and seeds; the same bits as the plain
+    version, to the digit where the sums are exact and by distance on the
+    sweeps' frames; the bias of the rounding against the deterministic
+    bf16 pass, kernel and plain; and a witness of the tensor cores' own
+    shift."""
+    kw = dict(stats_pass="bf16sr")
+    a = ck.em_stats_fused(x, w, gmm, **kw)
+    b = ck.em_stats_fused(x, w, gmm, **kw)
+    c = ck.em_stats_fused(x, w, gmm, seed=1, **kw)
+    check(all(torch.equal(getattr(a, f), getattr(b, f))
+              for f in ("n", "sum_x", "sum_xx", "llk")),
+          "K1 bf16sr: two calls with one seed equal to the digit")
+    check(not torch.equal(a.sum_x, c.sum_x), "K1 bf16sr: two seeds differ")
+    a2 = ck.bw_stats_fused(xu, wu, gmm, **kw)
+    b2 = ck.bw_stats_fused(xu, wu, gmm, **kw)
+    c2 = ck.bw_stats_fused(xu, wu, gmm, seed=1, **kw)
+    check(all(torch.equal(u, v) for u, v in zip(a2, b2)),
+          "K2 bf16sr: two calls with one seed equal to the digit")
+    check(not torch.equal(a2[1], c2[1]), "K2 bf16sr: two seeds differ")
+
+    # 1. exact sums: the kernel draws xa·s's bits of the plain version, to
+    #    the digit, on frames spread over the million (K1, K2, odd T)
+    xh, wh, gh = onehot_problem(dev, x.shape[0])
+    t_odd = xh.shape[0] // SR_ODD_T
+    xo2 = xh[:t_odd * SR_ODD_T].view(t_odd, SR_ODD_T, D)
+    wo2 = wh[:t_odd * SR_ODD_T].view(t_odd, SR_ODD_T)
+    xh2, wh2 = xh.view(xu.shape), wh.view(wu.shape)
+    res = {}
+    for sp in ("bf16", "bf16sr"):
+        kk = dict(stats_pass=sp, seed=7)
+        got = ck.em_stats_fused(xh, wh, gh, **kk)
+        want = ck.em_stats_reference(xh, wh, gh, **kk)
+        same = [torch.equal(getattr(got, f), getattr(want, f))
+                for f in ("n", "sum_x", "sum_xx")]
+        for label, (xk, wk) in (("K2", (xh2, wh2)),
+                                (f"K2 T={SR_ODD_T}", (xo2, wo2))):
+            same += [torch.equal(u, v) for u, v in zip(
+                ck.bw_stats_fused(xk, wk, gh, **kk)[:2],
+                ck.bw_stats_reference(xk, wk, gh, **kk)[:2])]
+        print(f"  modes: one-hot frames, {sp}: kernel equal to plain to the "
+              f"digit in K1 n/sum_x/sum_xx, K2 n/f, K2 T={SR_ODD_T} n/f: "
+              f"{same}")
+        check(all(same), f"{sp} on one-hot frames: every sum of K1 and K2 "
+              "equal to the plain version's to the digit")
+        res[sp] = got
+    check(not torch.equal(res["bf16sr"].sum_x, res["bf16"].sum_x),
+          "bf16sr on one-hot frames: other digits than round-to-nearest")
+
+    # 2. the oracle's frames: the kernel at seed 0 sits far closer to the
+    #    plain version at seed 0 than the plain version at seed 1 does (a
+    #    kernel keyed otherwise sits as far as another seed: ratio ~1); the
+    #    deterministic bf16 pass's distance beside it
+    def rms(u, v) -> float:
+        return float(torch.sqrt(torch.mean((u.double() - v.double()) ** 2)))
+
+    n_utt = xo.shape[0] // SR_ODD_T
+    cases = {
+        "K1": (lambda fn, **k: fn(xo, wo, gmm, **k), ck.em_stats_fused,
+               ck.em_stats_reference, ("n", "sum_x", "sum_xx")),
+        "K2": (lambda fn, **k: fn(xu[:16], wu[:16], gmm, **k),
+               ck.bw_stats_fused, ck.bw_stats_reference, (0, 1)),
+        f"K2 T={SR_ODD_T}": (
+            lambda fn, **k: fn(xo[:n_utt * SR_ODD_T].view(n_utt, SR_ODD_T, D),
+                               wo[:n_utt * SR_ODD_T].view(n_utt, SR_ODD_T),
+                               gmm, **k),
+            ck.bw_stats_fused, ck.bw_stats_reference, (0, 1))}
+    for label, (call, kern, plain, fields) in cases.items():
+        k0, p0, p1 = (call(kern, seed=0, **kw), call(plain, seed=0, **kw),
+                      call(plain, seed=1, **kw))
+        kb, pb = (call(kern, stats_pass="bf16"),
+                  call(plain, stats_pass="bf16"))
+
+        def get(st, f):
+            return getattr(st, f) if isinstance(f, str) else st[f]
+
+        for f in fields:
+            noise = rms(get(p0, f), get(p1, f))
+            r_sr = rms(get(k0, f), get(p0, f)) / noise
+            r_det = rms(get(kb, f), get(pb, f)) / noise
+            name = f if isinstance(f, str) else ("n", "f")[f]
+            print(f"  modes: {label} {name}: rms kernel - plain at one seed "
+                  f"over rms plain seed 0 - seed 1: bf16sr {r_sr:.3e}, "
+                  f"bf16 (deterministic) {r_det:.3e} (seed-to-seed rms "
+                  f"{noise:.3e})")
+            check(r_sr < SR_MATCH, f"{label} bf16sr {name}: the kernel draws "
+                  "the plain version's bits (distance ratio below "
+                  f"{SR_MATCH})")
+
+    # 3. the bias, mean over K of n - n64 on the oracle's frames, of the
+    #    kernel and its plain version; the rounding's own is read on the
+    #    plain versions (f32 products rounded to nearest), and the kernel's
+    #    bf16sr bias less its bf16 bias must match the plain versions'.
+    def bias(st) -> float:
+        return float((st.n.double() - n64).mean())
+
+    shift = {}
+    for label, kw2 in (("x3", {}), ("bf16nx", dict(stats_pass="bf16nx")),
+                       ("bf16", dict(stats_pass="bf16"))):
+        shift[label] = (bias(ck.em_stats_fused(xo, wo, gmm, **kw2)),
+                        bias(ck.em_stats_reference(xo, wo, gmm, **kw2)))
+    sr_k = np.array([bias(ck.em_stats_fused(xo, wo, gmm, seed=s, **kw))
+                     for s in range(SR_SEEDS)])
+    sr_p = np.array([bias(ck.em_stats_reference(xo, wo, gmm, seed=s, **kw))
+                     for s in range(SR_SEEDS)])
+    sem_k = float(sr_k.std(ddof=1) / np.sqrt(SR_SEEDS))
+    sem_p = float(sr_p.std(ddof=1) / np.sqrt(SR_SEEDS))
+    d_k = sr_k.mean() - shift["bf16"][0]
+    d_p = sr_p.mean() - shift["bf16"][1]
+    print(f"  modes: mean signed n error over K against float64 ({n_oracle} "
+          "frames), kernel / plain: " + "; ".join(
+              f"{k} {u:.3e} / {v:.3e}" for k, (u, v) in shift.items())
+          + f"; bf16sr over {SR_SEEDS} seeds {sr_k.mean():.3e} ± {sem_k:.3e}"
+          f" / {sr_p.mean():.3e} ± {sem_p:.3e} (standard errors; seed 0 "
+          f"{sr_k[0]:.3e} / {sr_p[0]:.3e})")
+    print(f"  modes: the kernels' accumulation shift (kernel - plain): " +
+          "; ".join(f"{k} {u - v:.3e}" for k, (u, v) in shift.items())
+          + f"; bf16sr {sr_k.mean() - sr_p.mean():.3e}; bf16sr less bf16: "
+          f"kernel {d_k:.3e}, plain {d_p:.3e}")
+    check(abs(sr_p.mean()) <= 4 * sem_p, "bf16sr (plain): the mean signed "
+          "occupancy error is within 4 standard errors of 0")
+    check(abs(sr_p.mean()) < abs(shift["bf16"][1]), "bf16sr (plain): its "
+          "mean signed occupancy error over the seeds is smaller in "
+          "magnitude than the deterministic bf16 pass's bias")
+    check(abs(d_k - d_p) <= 4 * np.hypot(sem_k, sem_p), "bf16sr (kernel): "
+          "its bias less the kernel's bf16 bias lies within 4 standard "
+          "errors of the same difference on the plain versions")
+
+    # 4. a witness of the shift: the plain bf16 pass's rounded operands
+    #    multiplied on the tensor cores by cuBLAS, and on the CUDA cores in
+    #    f32, against their float64 product
+    m1 = ck.check_mode(stats_pass="bf16")
+    pp, xsp, _ = ck._posteriors(xo[None], wo[None], ck.mode_params(gmm, m1),
+                                m1)
+    pb16, xb16 = pp[0].to(torch.bfloat16), xsp[0].to(torch.bfloat16)
+    exact = (pb16.double().T @ xb16.double())[:, 2 * D]
+    try:
+        tc = float((torch.mm(pb16.T, xb16, out_dtype=torch.float32)[:, 2 * D]
+                    .double() - exact).mean())
+        tc_txt = f"{tc:.3e}"
+    except (TypeError, RuntimeError) as e:
+        tc_txt = f"not available ({type(e).__name__})"
+    simt = float(((pb16.float().T @ xb16.float())[:, 2 * D].double()
+                  - exact).mean())
+    print(f"  modes: witness, mean over K of n - its float64 product on the "
+          f"plain bf16 pass's operands: cuBLAS bf16 on the tensor cores "
+          f"(torch.mm, out_dtype float32) {tc_txt}, f32 on the CUDA cores "
+          f"(TF32 {torch.backends.cuda.matmul.allow_tf32}) {simt:.3e}; the "
+          f"kernel's bf16 shift {shift['bf16'][0] - shift['bf16'][1]:.3e}")
 
 
 def cuda_ms(fn) -> float:
@@ -3078,18 +3389,22 @@ def main() -> int:
                 for name in _build.GXX_FLAGS]
         list(pool.map(_build.library, _build.SOURCES))
         host = [f.result() for f in host]
-    print(f"kernels built in {time.perf_counter() - t0:.1f} s (nvcc "
-          f"{_build.build_seconds:.1f} s summed over "
-          f"{len(_build.SOURCES)} sources)"
-          if _build.build_seconds is not None
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s (nvcc, "
+          "side by side: " + ", ".join(
+              f"{k} {v:.1f} s" for k, v in _build.build_times.items())
+          + "; gmm_stats is the tiers' library, the one the main paths "
+          "load)" if _build.build_times
           else "kernels: libraries already built")
     print("native builds: " + ", ".join(p.name for p in host))
     phase("build", t0)
 
     rng = np.random.default_rng(0)
-    kernels = {entry(k, tier): {"name": entry(k, tier), "route": "cuda",
-                                "source": SOURCE, "replaces": REPLACES[k]}
-               for k in REPLACES for tier in TIERS}
+    kernels = {entry(k, m.name): {"name": entry(k, m.name), "route": "cuda",
+                                  "source": SOURCE, "replaces": REPLACES[k]}
+               for k in REPLACES for m in ck.all_modes()}
+    for m in ck.all_modes()[4:]:        # phase 16's arithmetics
+        for k in REPLACES:
+            kernels[entry(k, m.name)]["launches"] = 0
 
     # 3. K1 vs its plain version, every tier: at the UBM's shape, at the
     # energy VAD's (K=3, D=1), at one MAP client's (10,000 frames), and at
@@ -3200,7 +3515,7 @@ def main() -> int:
     torch.cuda.synchronize()
     slice_s = time.perf_counter() - t1
     launches = dict(ck.launch_counts)
-    print(f"  slice (kernels) {slice_s:.2f} s; launches {launches}")
+    print(f"  slice (kernels) {slice_s:.2f} s; launches {shown(launches)}")
     print("  meanLLK per EM iteration (last = final UBM): "
           + ", ".join(f"{v:.5f}" for v in llks))
     for a, b in zip(llks, llks[1:]):
@@ -3273,7 +3588,7 @@ def main() -> int:
     for tier, res in chains.items():
         label = tier or "default"
         launches = res["launches"]
-        print(f"  chain [{label}]: launches {launches}")
+        print(f"  chain [{label}]: launches {shown(launches)}")
         # K1: 3 EM iterations; K2: 8 batches in each of
         # TotalVariability and IvExtractor
         for kname, count in (("em_stats_fused", 3),
@@ -3300,7 +3615,7 @@ def main() -> int:
     for tier, res in fm_runs.items():
         launches = res["launches"]
         key = entry("em_stats_fused", tier)
-        print(f"  TrainWorld [{tier}]: launches {launches}")
+        print(f"  TrainWorld [{tier}]: launches {shown(launches)}")
         check(launches[key] > 0, f"{key} launched by TrainWorld")
         check(all(v == 0 for k, v in launches.items() if k != key),
               f"only {key} launched by TrainWorld [{tier}]")
@@ -3315,6 +3630,12 @@ def main() -> int:
               "5e-2 nats/frame")
     for tier in fm_runs:        # no tool passes fastMath to K2
         kernels[entry("bw_stats_fused", tier)]["launches"] = 0
+    for m in ck.all_modes()[4:]:    # no tool reaches phase 16's arithmetics
+        for kname in REPLACES:
+            key = entry(kname, m.name)
+            kernels[key]["launches"] = sum(
+                res["launches"][key]
+                for res in (*chains.values(), *fm_runs.values()))
     dl = abs(final[""] - final["fastStats"])
     print(f"  final UBM meanLLK default {final['']:.7f}, fastStats "
           f"{final['fastStats']:.7f} (|diff| {dl:.2e})")
@@ -3404,6 +3725,8 @@ def main() -> int:
         kv["check_launches"] = (check_launches[kname]
                                 + ck.launch_counts[kname])
         kv["library_ms"] = None
+        if "ms" not in kv:      # timed in phase 16
+            continue
         print(f"  {kname}: kernel {kv['ms']:.3f} ms, plain "
               f"{kv['plain_ms']:.3f} ms, bound {kv['bound_ms']:.3f} ms by "
               f"{kv['bound_by']} (bound / time = "
@@ -3453,6 +3776,11 @@ def main() -> int:
     t0 = time.perf_counter()
     run_oracle_parity(kernels, dev)
     phase("oracle", t0)
+
+    # 16. every other arithmetic of K1 and K2 at full width
+    t0 = time.perf_counter()
+    run_modes(kernels, dev)
+    phase("modes", t0)
 
     print(smi[0])
     print(json.dumps({"kernels": list(kernels.values())}))

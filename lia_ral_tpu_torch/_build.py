@@ -33,15 +33,26 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 SOURCE = _CSRC / "gmm_stats_wgmma.cu"         # K1 and K2
-# library name → source; "viterbi" is the diarization decoder, "svm_dual"
-# the SVM trainer's dual solver
-SOURCES = {"gmm_stats": SOURCE, "viterbi": _CSRC / "viterbi.cu",
-           "svm_dual": _CSRC / "svm_dual.cu"}
-_HEADERS = {"gmm_stats": (_CSRC / "wgmma_ops.cuh",), "viterbi": (),
+# library name → source: "gmm_stats" holds K1/K2 in the four tiers (what
+# config keys and tools reach), "gmm_stats_modes" every arithmetic of the
+# JAX wrappers (the same source, whole); "viterbi" is the diarization
+# decoder, "svm_dual" the SVM trainer's dual solver
+SOURCES = {"gmm_stats": SOURCE, "gmm_stats_modes": SOURCE,
+           "viterbi": _CSRC / "viterbi.cu", "svm_dual": _CSRC / "svm_dual.cu"}
+_HEADERS = {"gmm_stats": (_CSRC / "wgmma_ops.cuh",),
+            "gmm_stats_modes": (_CSRC / "wgmma_ops.cuh",), "viterbi": (),
             "svm_dual": ()}
+# each library's own defines: the tiers' build leaves the other modes'
+# kernel instances out, so the main paths build in a fraction of the time
+DEFINES = {"gmm_stats": ("-DLIA_TIERS_ONLY",)}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    """nvcc's flags for library ``name``."""
+    return NVCC_FLAGS + DEFINES.get(name, ())
 
 # native/Makefile's own flags: line 2 for the library, lines 21-22 for
 # the oracle (no -ffast-math: it is the careful f64 side of a parity run)
@@ -51,9 +62,8 @@ GXX_FLAGS = {"liaio": ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall"),
 GXX_LIBS = {"liaio": (), "oracle": ("-lpthread",)}
 
 _locks = {name: threading.Lock() for name in (*SOURCES, *GXX_FLAGS)}
-_seconds_lock = threading.Lock()
 _libs: dict = {}
-build_seconds: float | None = None     # wall time of this process's builds
+build_times: dict = {}      # library name → seconds of its build here
 
 
 def nvcc() -> str:
@@ -73,17 +83,17 @@ def _library_path(name: str = "gmm_stats") -> Path:
     h = hashlib.sha256()
     for f in (SOURCES[name], *_HEADERS[name]):
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{SOURCES[name].stem}_{h.hexdigest()[:16]}.so"
 
 
-def _compile(source: Path, out: Path) -> None:
+def _compile(name: str, out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # compile to a private name, then rename: a concurrent build never
     # loads a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
+    cmd = [nvcc(), *nvcc_flags(name), "-o", tmp, str(SOURCES[name])]
     try:
         proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -99,16 +109,18 @@ def _compile(source: Path, out: Path) -> None:
 def _bind(name: str, lib) -> None:
     import ctypes
 
-    p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_float)
-    if name == "gmm_stats":
-        lib.lia_stats_scratch_bytes.argtypes = [ll, i, i, i, i, i]
+    p, i, ll, f, u64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                        ctypes.c_float, ctypes.c_ulonglong)
+    if name in ("gmm_stats", "gmm_stats_modes"):
+        # the mode: logit passes, exp mode, stats form, nx, seed
+        mode = [i, i, i, i, u64]
+        lib.lia_stats_scratch_bytes.argtypes = [ll, i, i, i, i, i, i, i]
         lib.lia_stats_scratch_bytes.restype = ll
-        lib.lia_em_stats_wgmma.argtypes = [p, p, p, p, p, ll, i, i, i, i,
-                                           p, p, p]
+        lib.lia_em_stats_wgmma.argtypes = [p, p, p, p, p, ll, i, i, i,
+                                           *mode, p, p, p]
         lib.lia_em_stats_wgmma.restype = i
-        lib.lia_bw_stats_wgmma.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                           p, p, p]
+        lib.lia_bw_stats_wgmma.argtypes = [p, p, p, p, p, i, i, i, i,
+                                           *mode, p, p, p]
         lib.lia_bw_stats_wgmma.restype = i
     elif name == "viterbi":
         lib.lia_viterbi.argtypes = [p, p, ll, i, f, p, p, p]
@@ -121,7 +133,6 @@ def _bind(name: str, lib) -> None:
 def library(name: str = "gmm_stats"):
     """The loaded kernel library ``name`` (a key of ``SOURCES``), built
     on first call."""
-    global build_seconds
     with _locks[name]:
         if name in _libs:
             return _libs[name]
@@ -130,10 +141,8 @@ def library(name: str = "gmm_stats"):
         path = _library_path(name)
         if not path.exists():
             t0 = time.perf_counter()
-            _compile(SOURCES[name], path)
-            with _seconds_lock:
-                build_seconds = ((build_seconds or 0.0)
-                                 + time.perf_counter() - t0)
+            _compile(name, path)
+            build_times[name] = time.perf_counter() - t0
         lib = ctypes.CDLL(str(path))
         _bind(name, lib)
         _libs[name] = lib

@@ -5,7 +5,8 @@ Reference ``computeAndAccumulateTVStat`` (AccumulateTVStat.cpp:281-351).
 Utterances are processed as padded (S, T, D) batches with (S, T) masks.
 For CUDA tensors the batch goes through kernel K2
 (``gmm.cuda_kernels.bw_stats_fused``); for CPU tensors through its plain
-version, in the tier ``stats_pass`` names.  Stats checkpoint as ``.npz``
+version, in the arithmetic ``stats_pass`` names (any value of the JAX
+kernel's: ``gmm.cuda_kernels`` lists them).  Stats checkpoint as ``.npz``
 and as ALIZE ``.matx`` matrices (the reference's saveAccs layout).
 """
 
@@ -16,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..gmm.cuda_kernels import bw_stats_fused, bw_stats_reference, check_tier
+from ..gmm.cuda_kernels import bw_stats_fused, bw_stats_reference, check_mode
 from ..gmm.kernels import llk_and_posteriors
 from ..gmm.model import GmmDiag
 from ..io.matrix import read_matrix_file, write_matrix_file
@@ -71,8 +72,9 @@ def bw_stats_batch(x: torch.Tensor, mask: torch.Tensor, gmm: GmmDiag,
 
     ``use_fused=None`` picks kernel K2 for a CUDA tensor and the plain
     version for a CPU one; ``use_fused=False`` asks for the plain version
-    on any device.  ``stats_pass="bf16nx"`` is the fastStats tier."""
-    check_tier(None, stats_pass)
+    on any device.  ``stats_pass`` is any of the kernel's
+    (``"bf16nx"`` is the fastStats tier)."""
+    check_mode(stats_pass=stats_pass)
     if use_fused is None:
         use_fused = x.device.type == "cuda"
     if use_fused:

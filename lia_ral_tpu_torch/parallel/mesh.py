@@ -54,6 +54,33 @@ def device_count(kind: str = "cuda") -> int:
     return len(visible_devices(kind))
 
 
+def _create_handles(dev: torch.device) -> None:
+    """This thread's cuBLAS and cuSOLVER handles on ``dev``: PyTorch makes
+    them at a thread's first product or factorisation on a device and
+    keeps them for the thread's life."""
+    with torch.cuda.device(dev):
+        # a factorisation first: its launches make the device's context
+        # current in this thread before the cuBLAS handle is asked for
+        torch.linalg.cholesky(torch.ones((1, 1), device=dev))
+        torch.cuda.current_blas_handle()
+
+
+def _thread_handles(devices) -> None:
+    """Initializer of a mesh's shard threads: their library handles on
+    every CUDA device of the mesh, before any body runs.  cuSOLVER takes a
+    new handle's memory with cudaMalloc, outside PyTorch's caching
+    allocator, so when the cache holds most of the card the handle fails
+    (CUSOLVER_STATUS_INTERNAL_ERROR); the cached blocks are then returned
+    and the handles made once more, as the allocator does before it
+    reports that it is out of memory."""
+    for dev in devices:
+        try:
+            _create_handles(dev)
+        except RuntimeError:
+            torch.cuda.empty_cache()
+            _create_handles(dev)
+
+
 class _Aborted(RuntimeError):
     """A shard left a collective because another shard failed."""
 
@@ -274,7 +301,8 @@ class Mesh:
     def run(self, body) -> dict:
         """``body(shard)`` on every local shard, one thread each (the
         mesh's own threads, kept from run to run: a new thread pays the
-        CUDA runtime's per-thread set-up again); returns
+        CUDA runtime's per-thread set-up again, and each makes its library
+        handles when it starts, ``_thread_handles``); returns
         {(data, model): output}.  On a CUDA device each shard runs on its
         own stream, which first waits for the caller's stream; the
         caller's stream waits for every shard's before this returns.  A
@@ -307,7 +335,9 @@ class Mesh:
 
         if self._pool is None:
             self._pool = concurrent.futures.ThreadPoolExecutor(
-                max_workers=len(keys), thread_name_prefix="mesh-shard")
+                max_workers=len(keys), thread_name_prefix="mesh-shard",
+                initializer=_thread_handles,
+                initargs=(sorted(cuda_devs, key=str),))
         concurrent.futures.wait([self._pool.submit(work, k) for k in keys])
         if rt.failed is not None:
             raise rt.failed

@@ -66,9 +66,11 @@ def loop_ms(fn, calls: int = 5) -> float:
 
 def print_registers() -> None:
     """ptxas's report of registers and spills per kernel, from a build of
-    its own with the package's flags; the library it writes is dropped."""
+    its own with the flags of the every-mode library (every instance);
+    the library it writes is dropped."""
     with tempfile.TemporaryDirectory() as tmp:
-        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+        cmd = [_build.nvcc(), *_build.nvcc_flags("gmm_stats_modes"),
+               "-Xptxas", "-v", "-o",
                os.path.join(tmp, "scratch.so"), str(_build.SOURCE)]
         out = subprocess.run(cmd, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True,
@@ -95,7 +97,7 @@ def main() -> int:
     if args.registers:
         print_registers()
     _build.library()
-    print(f"build {_build.build_seconds} s")
+    print(f"build s {_build.build_times}")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     wts = rng.random(args.k) + 0.5

@@ -108,20 +108,33 @@ def test_k2_cuda_matches_plain(cuda_device, s, t, k, d):
 
 TIERS = [(None, "bf16nx", "fastStats"), (torch.bfloat16, "x3", "fastMath"),
          (torch.bfloat16, "bf16nx", "fastMath+fastStats")]
+# every arithmetic but the four tiers, as (wrapper keywords, key name)
+MODES = [(m.kwargs(), m.name) for m in ck.all_modes()[4:]]
+CASES = [(dict(compute_dtype=cdt, stats_pass=sp), name)
+         for cdt, sp, name in TIERS] + MODES
 
 
-def _tier_sum_rtol(stats_pass, compute_dtype):
-    """S/F budget of a tier (every tier of ``TIERS`` is one pass; the
-    default tier, ``compute_dtype=None`` with "x3", is three)."""
-    one_pass = stats_pass == "bf16nx" or compute_dtype is torch.bfloat16
-    return 2e-3 if one_pass else 1e-3
+def _tier_sum_rtol(kw):
+    """S/F budget of an arithmetic: three- and six-pass stats products
+    are f32-grade (1e-3); a product that rounds p or xa·s to bf16 once,
+    or twice in its two-pass forms, or stochastically, gets 2e-3."""
+    return 1e-3 if ck.check_mode(**kw).stats in ("3", "6") else 2e-3
 
 
-def _tier_n_rtol(stats_pass, compute_dtype):
-    """Occupancy budget: exact sums (1e-4) but for fastMath alone, whose n
-    is a column of the one-pass product."""
-    alone = compute_dtype is torch.bfloat16 and stats_pass == "x3"
-    return 2e-3 if alone else 1e-4
+def _tier_n_rtol(kw):
+    """Occupancy budget: exact sums (1e-4) where n is the exact Σ p·s or
+    a column of a three- or six-pass product, else that product's 2e-3."""
+    mode = ck.check_mode(**kw)
+    return 1e-4 if mode.nx or mode.stats in ("3", "6") else 2e-3
+
+
+def _rounds(kw):
+    """Whether an arithmetic rounds to bf16 where the default tier does
+    not (so its kernel must sit closer to its own plain version than to
+    the default's); "exp", "fast2" and "highest" with f32-grade products
+    sit within f32-level differences of the default."""
+    mode = ck.check_mode(**kw)
+    return mode.logit_passes == 1 or mode.stats not in ("3", "6")
 
 
 def _closer_to_tier(got, tier_plain, default_plain):
@@ -131,46 +144,47 @@ def _closer_to_tier(got, tier_plain, default_plain):
     assert np.mean(np.abs(got - a)) < 0.5 * np.mean(np.abs(got - b))
 
 
-@pytest.mark.parametrize("cdt,sp,name", TIERS, ids=[t[2] for t in TIERS])
+def _key(kernel, name):
+    return f"{kernel}[{name}]" if name else kernel
+
+
+@pytest.mark.parametrize("kw,name", CASES, ids=[c[1] for c in CASES])
 @pytest.mark.parametrize("n,k,d,chunk", [(65536, 2048, 39, 8192),
                                          (777, 64, 60, 100),
                                          (2000, 3, 1, None),
                                          (10000, 2048, 39, None)])
-def test_k1_tiers_cuda_match_plain(cuda_device, n, k, d, chunk, cdt, sp,
-                                   name):
+def test_k1_tiers_cuda_match_plain(cuda_device, n, k, d, chunk, kw, name):
     rng = np.random.default_rng(7)
     tg = _gmm(1, k, d, cuda_device)
     x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32))
     w = rng.random(n).astype(np.float32)
     w[rng.random(n) < 0.05] = 0.0
     xt, wt = x.to(cuda_device), torch.from_numpy(w).to(cuda_device)
-    key = f"em_stats_fused[{name}]"
+    key = _key("em_stats_fused", name)
     before = ck.launch_counts[key]
-    got = ck.em_stats_fused(xt, wt, tg, chunk=chunk, compute_dtype=cdt,
-                            stats_pass=sp)
+    got = ck.em_stats_fused(xt, wt, tg, chunk=chunk, **kw)
     torch.cuda.synchronize()
     assert ck.launch_counts[key] == before + 1
-    want = ck.em_stats_reference(xt, wt, tg, compute_dtype=cdt,
-                                 stats_pass=sp)
-    _close(got.n, want.n, _tier_n_rtol(sp, cdt))
-    _close(got.sum_x, want.sum_x, _tier_sum_rtol(sp, cdt))
-    _close(got.sum_xx, want.sum_xx, _tier_sum_rtol(sp, cdt))
+    want = ck.em_stats_reference(xt, wt, tg, **kw)
+    _close(got.n, want.n, _tier_n_rtol(kw))
+    _close(got.sum_x, want.sum_x, _tier_sum_rtol(kw))
+    _close(got.sum_xx, want.sum_xx, _tier_sum_rtol(kw))
     np.testing.assert_allclose(float(got.llk), float(want.llk), rtol=1e-5)
     np.testing.assert_allclose(float(got.count), float(want.count),
                                rtol=1e-6)
-    _closer_to_tier(got.sum_x, want.sum_x,
-                    ck.em_stats_reference(xt, wt, tg).sum_x)
-    again = ck.em_stats_fused(xt, wt, tg, chunk=chunk, compute_dtype=cdt,
-                              stats_pass=sp)
+    if _rounds(kw):
+        _closer_to_tier(got.sum_x, want.sum_x,
+                        ck.em_stats_reference(xt, wt, tg).sum_x)
+    again = ck.em_stats_fused(xt, wt, tg, chunk=chunk, **kw)
     for a, b in zip((again.n, again.sum_x, again.sum_xx, again.llk),
                     (got.n, got.sum_x, got.sum_xx, got.llk)):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("cdt,sp,name", TIERS, ids=[t[2] for t in TIERS])
+@pytest.mark.parametrize("kw,name", CASES, ids=[c[1] for c in CASES])
 @pytest.mark.parametrize("s,t,k,d", [(8, 2000, 2048, 39), (7, 61, 100, 13),
                                      (5, 2060, 2048, 39)])
-def test_k2_tiers_cuda_match_plain(cuda_device, s, t, k, d, cdt, sp, name):
+def test_k2_tiers_cuda_match_plain(cuda_device, s, t, k, d, kw, name):
     rng = np.random.default_rng(8)
     tg = _gmm(2, k, d, cuda_device)
     x = rng.standard_normal((s, t, d), dtype=np.float32)
@@ -178,23 +192,127 @@ def test_k2_tiers_cuda_match_plain(cuda_device, s, t, k, d, cdt, sp, name):
     mask[-1] = 0.0                       # an all-zero-weight utterance
     xt = torch.from_numpy(x).to(cuda_device)
     mt = torch.from_numpy(mask).to(cuda_device)
-    key = f"bw_stats_fused[{name}]"
+    key = _key("bw_stats_fused", name)
     before = ck.launch_counts[key]
-    n, f, llk = ck.bw_stats_fused(xt, mt, tg, compute_dtype=cdt,
-                                  stats_pass=sp)
+    n, f, llk = ck.bw_stats_fused(xt, mt, tg, **kw)
     torch.cuda.synchronize()
     assert ck.launch_counts[key] == before + 1
-    rn, rf, rl = ck.bw_stats_reference(xt, mt, tg, compute_dtype=cdt,
-                                       stats_pass=sp)
-    _close(n, rn, _tier_n_rtol(sp, cdt))
-    _close(f, rf, _tier_sum_rtol(sp, cdt))
+    rn, rf, rl = ck.bw_stats_reference(xt, mt, tg, **kw)
+    _close(n, rn, _tier_n_rtol(kw))
+    _close(f, rf, _tier_sum_rtol(kw))
     np.testing.assert_allclose(np_of(llk), np_of(rl), rtol=1e-5)
     assert torch.all(n[-1] == 0) and torch.all(f[-1] == 0)
     assert float(llk[-1]) == 0.0
-    _closer_to_tier(f, rf, ck.bw_stats_reference(xt, mt, tg)[1])
-    n2, f2, l2 = ck.bw_stats_fused(xt, mt, tg, compute_dtype=cdt,
-                                   stats_pass=sp)
+    if _rounds(kw):
+        _closer_to_tier(f, rf, ck.bw_stats_reference(xt, mt, tg)[1])
+    n2, f2, l2 = ck.bw_stats_fused(xt, mt, tg, **kw)
     assert torch.equal(n2, n) and torch.equal(f2, f) and torch.equal(l2, llk)
+
+
+def test_sr_cuda_bits_follow_frames(cuda_device):
+    """``"bf16sr"`` on the card keys its bits on the global frame: K1 at
+    chunks of 128 and 1024 frames gives the same stats up to f32
+    reordering (1e-5 of scale), K2's stats summed over utterances those
+    of K1 on the flat frames, the same seed every digit again and
+    another seed other digits; and the kernel equals the plain version,
+    which draws the same bits, within the one-pass budgets."""
+    rng = np.random.default_rng(16)
+    tg = _gmm(4, 256, 39, cuda_device)
+    xt = torch.from_numpy(rng.standard_normal((4, 1500, 39),
+                                              dtype=np.float32)
+                          ).to(cuda_device)
+    mt = torch.ones((4, 1500), device=cuda_device)
+    kw = dict(stats_pass="bf16sr", seed=77)
+    xf, wf = xt.reshape(-1, 39), mt.reshape(-1)
+    a = ck.em_stats_fused(xf, wf, tg, chunk=128, **kw)
+    b = ck.em_stats_fused(xf, wf, tg, chunk=1024, **kw)
+    for f in ("n", "sum_x", "sum_xx"):
+        _close(getattr(a, f), getattr(b, f), 1e-5)
+    n2, f2, _ = ck.bw_stats_fused(xt, mt, tg, **kw)
+    _close(n2.sum(0), a.n, 1e-5)
+    _close(f2.sum(0), a.sum_x, 1e-5)
+    again = ck.em_stats_fused(xf, wf, tg, chunk=128, **kw)
+    assert torch.equal(again.sum_x, a.sum_x) and torch.equal(again.n, a.n)
+    other = ck.em_stats_fused(xf, wf, tg, chunk=128, stats_pass="bf16sr",
+                              seed=78)
+    assert not torch.equal(other.sum_x, a.sum_x)
+    want = ck.em_stats_reference(xf, wf, tg, **kw)
+    _close(a.n, want.n, 2e-3)
+    _close(a.sum_x, want.sum_x, 2e-3)
+
+
+def _one_hot_frames(rng, n, k, d, device):
+    """Frames whose posteriors are exactly one-hot: unit variances, the mean
+    of component c 20 times the bits of c over the first log2(k)
+    dimensions, frame f within 0.5 of the mean of component f mod k, and
+    one frame a component (drawn from the whole range) weighted in
+    [0.5, 1.5), the others 0.  Every stats sum then has one nonzero term."""
+    bits = int(np.log2(k))
+    means = np.zeros((k, d), np.float32)
+    means[:, :bits] = 20.0 * ((np.arange(k)[:, None] >> np.arange(bits)) & 1)
+    f = np.arange(n)
+    x = (means[f % k] + rng.uniform(-0.5, 0.5, (n, d))).astype(np.float32)
+    w = np.zeros(n, np.float32)
+    w[np.arange(k) + k * rng.integers(0, n // k, k)] = rng.uniform(0.5, 1.5, k)
+    return (torch.from_numpy(x).to(device), torch.from_numpy(w).to(device),
+            gmm_from_numpy(np.full(k, 1.0 / k), means, np.ones((k, d)),
+                           device))
+
+
+@pytest.mark.parametrize("stats_pass", ["bf16", "bf16sr"])
+def test_sr_cuda_sums_equal_plain_on_one_hot_frames(cuda_device, stats_pass):
+    """Where every sum is exact (one-hot posteriors: p is 1 or 0, so each
+    statistic is the one bf16(xa·w) of its frame), K1 and K2 (T even and
+    odd) equal the plain version to the digit: the kernel rounds xa·s with
+    the plain version's bits, on the global frame index."""
+    rng = np.random.default_rng(17)
+    x, w, tg = _one_hot_frames(rng, 30_000, 128, 13, cuda_device)
+    kw = dict(stats_pass=stats_pass, seed=9)
+    got, want = (ck.em_stats_fused(x, w, tg, **kw),
+                 ck.em_stats_reference(x, w, tg, **kw))
+    for f in ("n", "sum_x", "sum_xx"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for t in (2000, 1999):
+        s = x.shape[0] // t
+        xu, wu = x[:s * t].view(s, t, 13), w[:s * t].view(s, t)
+        for a, b in zip(ck.bw_stats_fused(xu, wu, tg, **kw)[:2],
+                        ck.bw_stats_reference(xu, wu, tg, **kw)[:2]):
+            assert torch.equal(a, b), t
+
+
+@pytest.mark.parametrize("t", [None, 2000, 1999])
+def test_sr_cuda_draws_the_plain_versions_bits(cuda_device, t):
+    """On random frames (K1, or K2 at an even and an odd T, where a thread's
+    frame pair spans two counters) the kernel at one seed lies far closer
+    to the plain version at that seed than the plain version at another
+    seed does: rms(kernel − plain) / rms(plain seed 9 − plain seed 10)
+    below 0.5 for every statistic (a kernel that drew other bits would
+    sit at ~1; matched bits leave only the accumulation's differences)."""
+    rng = np.random.default_rng(18)
+    tg = _gmm(5, 256, 39, cuda_device)
+    x = torch.from_numpy(rng.standard_normal((20_000, 39), dtype=np.float32)
+                         ).to(cuda_device)
+    w = torch.ones(20_000, device=cuda_device)
+    if t is None:
+        def run(fn, seed):
+            st = fn(x, w, tg, stats_pass="bf16sr", seed=seed)
+            return st.n, st.sum_x, st.sum_xx
+    else:
+        s = x.shape[0] // t
+        xu, wu = x[:s * t].view(s, t, 39), w[:s * t].view(s, t)
+
+        def run(fn, seed):
+            return fn(xu, wu, tg, stats_pass="bf16sr", seed=seed)[:2]
+
+    def rms(a, b):
+        return float(torch.sqrt(torch.mean((a.double() - b.double()) ** 2)))
+
+    k9 = run(ck.em_stats_fused if t is None else ck.bw_stats_fused, 9)
+    p9 = run(ck.em_stats_reference if t is None else ck.bw_stats_reference, 9)
+    p10 = run(ck.em_stats_reference if t is None else ck.bw_stats_reference,
+              10)
+    for a, b, c in zip(k9, p9, p10):
+        assert rms(a, b) < 0.5 * rms(b, c)
 
 
 def _f64_stats(x, w, gmm):
@@ -276,8 +394,9 @@ def test_k2_unaligned_start_cuda_matches_plain(cuda_device):
                                       stats_pass=sp)
         rn, rf, rl = ck.bw_stats_reference(xt, mt, tg, compute_dtype=cdt,
                                            stats_pass=sp)
-        _close(n, rn, _tier_n_rtol(sp, cdt))
-        _close(f, rf, _tier_sum_rtol(sp, cdt))
+        kw = dict(compute_dtype=cdt, stats_pass=sp)
+        _close(n, rn, _tier_n_rtol(kw))
+        _close(f, rf, _tier_sum_rtol(kw))
         np.testing.assert_allclose(np_of(llk), np_of(rl), rtol=1e-5)
         assert torch.all(n[-1] == 0) and torch.all(f[-1] == 0)
     x1 = flat[1:1 + 300 * d].view(300, d)
@@ -290,8 +409,8 @@ def test_k2_unaligned_start_cuda_matches_plain(cuda_device):
 
 def test_cuda_tensor_never_reaches_a_plain_path(cuda_device, monkeypatch):
     """On a CUDA tensor every entry point launches its kernel, in every
-    tier: with the plain versions made to raise, the calls succeed and
-    each adds one to its own launch count."""
+    tier and every other arithmetic: with the plain versions made to
+    raise, the calls succeed and each adds one to its own launch count."""
     from lia_ral_tpu_torch.fa import stats as tstats
     from lia_ral_tpu_torch.gmm import em as tem
 
@@ -321,6 +440,19 @@ def test_cuda_tensor_never_reaches_a_plain_path(cuda_device, monkeypatch):
         torch.cuda.synchronize()
         assert ck.launch_counts[k1] == before[k1] + 2
         assert ck.launch_counts[k2] == before[k2] + 1
+    for kw, name in MODES:
+        before = dict(ck.launch_counts)
+        ck.em_stats_fused(xt.reshape(-1, 9), mt.reshape(-1), tg, **kw)
+        ck.bw_stats_fused(xt, mt, tg, **kw)
+        tstats.bw_stats_batch(xt, mt, tg, stats_pass=kw["stats_pass"])
+        torch.cuda.synchronize()
+        k1, k2 = _key("em_stats_fused", name), _key("bw_stats_fused", name)
+        assert ck.launch_counts[k1] == before[k1] + 1
+        k2_batch = _key("bw_stats_fused", ck.check_mode(
+            stats_pass=kw["stats_pass"]).name)
+        assert ck.launch_counts[k2] == before[k2] + 1 + (k2_batch == k2)
+        assert ck.launch_counts[k2_batch] == before[k2_batch] + 1 + (
+            k2_batch == k2)
     before = ck.launch_counts["bw_stats_fused"]
     tstats.bw_stats_batch(xt, mt, tg)
     assert ck.launch_counts["bw_stats_fused"] == before + 1

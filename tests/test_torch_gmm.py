@@ -354,14 +354,36 @@ def test_unported_tiers_raise(rng, call, request):
                                rtol=5e-3 if fast_math else 1e-5, atol=1e-3)
 
 
-def test_sweep_only_modes_rejected(rng):
+def test_unknown_modes_rejected(rng):
+    """Every entry point raises ValueError for a name it does not take:
+    an unknown ``stats_pass``, ``exp_mode`` or ``mxu_precision``
+    (``"HIGH"`` included: only ``"high"`` is the three-pass alias, Mosaic
+    lowers no Precision.HIGH), and ``compute_dtype=float16``; the tier
+    check of the config keys raises for a mode that is no tier."""
+    from lia_ral_tpu_torch.fa import stats as tstats
+    from lia_ral_tpu_torch.gmm import cuda_kernels as ck
+
     _, tg = both_gmms(rng, 4, 3)
     x, w = torch.zeros((8, 3)), torch.ones(8)
-    for mode in ("bf16", "bf16sr", "bf16x2p", "bf16x2x"):
+    bad = [dict(stats_pass="bf16x3"), dict(stats_pass="fp8"),
+           dict(exp_mode="exp10"), dict(exp_mode="fast"),
+           dict(mxu_precision="bf16x6"), dict(mxu_precision="HIGH"),
+           dict(compute_dtype=torch.float16)]
+    for kw in bad:
+        for call in (lambda: em_stats_fused(x, w, tg, **kw),
+                     lambda: bw_stats_fused(x[None], w[None], tg, **kw),
+                     lambda: ck.em_stats_reference(x, w, tg, **kw),
+                     lambda: ck.bw_stats_reference(x[None], w[None], tg,
+                                                   **kw)):
+            with pytest.raises(ValueError):
+                call()
+    for sp in ("bf16x3", "fp8"):
         with pytest.raises(ValueError):
-            em_stats_fused(x, w, tg, stats_pass=mode)
+            tstats.bw_stats_batch(x[None], w[None], tg, stats_pass=sp)
     with pytest.raises(ValueError):
-        em_stats_fused(x, w, tg, compute_dtype=torch.float16)
+        ck.check_tier(None, "bf16x2p")
+    with pytest.raises(ValueError):
+        em_stats_fused(x, w, tg, stats_pass="bf16sr", seed=-1)
 
 
 def test_non_cpu_non_cuda_tensor_has_no_fallback(rng):
@@ -465,7 +487,7 @@ def test_port_imports_no_jax():
         "import lia_ral_tpu_torch.parallel.distributed\n"
         "import lia_ral_tpu_torch.io.native\n"
         "sys.path.insert(0, 'scripts')\n"
-        "import torch_oracle_parity\n"
+        "import torch_oracle_parity, torch_sweep_fused, torch_sweep_bw\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"

@@ -1,0 +1,377 @@
+"""K1 (EM stats) in the arithmetic modes beyond the four tiers: the plain
+versions of ``lia_ral_tpu_torch.gmm.cuda_kernels`` against the JAX
+package's Pallas kernel in interpret mode on the same numpy inputs, the
+aliases of the tiers, the six-pass product against float64, and the
+stochastic rounding of ``stats_pass="bf16sr"`` with its counter-based
+generator.  K2's cases are in tests/test_torch_kernel_modes_k2.py (a
+file of their own so that the workers split the interpret-mode runs);
+the CUDA kernels are held against these plain versions in
+tests/test_torch_cuda_kernels.py.
+
+Tolerances are stated in each test.  Where the JAX kernel rounds
+explicitly (bf16 casts, ``_fast_exp2``) the port rounds at the same
+points, so the budget is 2e-6 of the array's largest value (f32
+accumulation order); where the interpret-mode dot multiplies in f32
+(``mxu_precision="highest"``) it is f32-level too.  Where a product
+rounds p or xa·s to bf16 once (stats forms "1", "2p", "2x"), an f32-level
+difference of the logits (the two packages sum the logit product in
+another order) can flip one rounding, which moves a whole row (a p) or
+column (an xa·s) of the sums by one bf16 ulp of its terms: there at least
+half the elements stay within the 2e-6 budget, and all within the
+one-pass budget of 2e-3 of scale.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from lia_ral_tpu.gmm.pallas_kernels import _fast_exp2 as jfast_exp2
+from lia_ral_tpu.gmm.pallas_kernels import em_stats_fused as jem_fused
+
+from lia_ral_tpu_torch.gmm import cuda_kernels as ck
+
+from _torch_parity import both_gmms, np_of
+
+MODE_BUDGET = 2e-6              # of the largest |value|, see the docstring
+LLK_BUDGET = 1e-6               # relative
+ONE_PASS_BUDGET = 2e-3          # of scale: the one-pass tiers' budget
+
+# (id, the port's keywords, the JAX kernel's keywords).  exp x fastMath:
+# in interpret mode the JAX DEFAULT-precision stats dot multiplies in f32
+# (ROADMAP.md queue 3), so its JAX side is the same arithmetic spelt with
+# the explicit bf16 cast, stats_pass="bf16" (the port runs both spellings
+# as one mode; test_fast_math_spellings_are_one_mode).
+CASES = [
+    ("bf16", dict(stats_pass="bf16"), dict(stats_pass="bf16")),
+    ("bf16x2p", dict(stats_pass="bf16x2p"), dict(stats_pass="bf16x2p")),
+    ("bf16x2x", dict(stats_pass="bf16x2x"), dict(stats_pass="bf16x2x")),
+    ("exp", dict(exp_mode="exp"), dict(exp_mode="exp")),
+    ("fast2", dict(exp_mode="fast2"), dict(exp_mode="fast2")),
+    ("highest", dict(mxu_precision="highest"),
+     dict(mxu_precision="highest")),
+    ("exp-fastMath", dict(exp_mode="exp", compute_dtype=torch.bfloat16),
+     dict(exp_mode="exp", compute_dtype=jnp.bfloat16, stats_pass="bf16")),
+    ("fast2-bf16nx", dict(exp_mode="fast2", stats_pass="bf16nx"),
+     dict(exp_mode="fast2", stats_pass="bf16nx")),
+    ("highest-bf16", dict(mxu_precision="highest", stats_pass="bf16"),
+     dict(mxu_precision="highest", stats_pass="bf16")),
+]
+
+
+def _frames(rng, n, d, zero_frac=0.05):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    w = rng.random(n).astype(np.float32)
+    w[rng.random(n) < zero_frac] = 0.0
+    return x, w
+
+
+def _assert_scaled(got, want, budget, label, flips=False):
+    """max |got - want| within budget·max|want|; with ``flips``, the
+    median, and every element within 2e-3·max|want|."""
+    got, want = np_of(got), np_of(want)
+    err = np.abs(got - want)
+    scale = float(np.max(np.abs(want)))
+    if flips:
+        assert float(np.median(err)) <= budget * scale, (
+            f"{label}: median {float(np.median(err)):.3e} of {scale:.3e}")
+        budget = ONE_PASS_BUDGET
+    assert float(err.max()) <= budget * scale, (
+        f"{label}: {float(err.max()):.3e} of scale {scale:.3e}")
+
+
+@pytest.mark.parametrize("name,tkw,jkw", CASES, ids=[c[0] for c in CASES])
+@pytest.mark.parametrize("n,k,d", [(96, 8, 5), (130, 16, 7)])
+def test_k1_mode_plain_matches_jax_kernel(rng, n, k, d, name, tkw, jkw):
+    """The port's plain K1 in each mode against the Pallas kernel in the
+    same mode (interpret mode, block 32; N = 130 is padded by the JAX
+    wrapper with zero-weight frames): n, sums within 2e-6 of scale (the
+    module docstring says where a rounding may flip), llk within 1e-6
+    relative, count to 1e-6."""
+    jg, tg = both_gmms(rng, k, d)
+    x, w = _frames(rng, n, d)
+    got = ck.em_stats_reference(torch.from_numpy(x), torch.from_numpy(w),
+                                tg, chunk=32, **tkw)
+    want = jem_fused(jnp.asarray(x), jnp.asarray(w), jg, block=32,
+                     interpret=True, **jkw)
+    mode = ck.check_mode(**tkw)
+    once = mode.stats in ("1", "2p", "2x")
+    for f in ("n", "sum_x", "sum_xx"):
+        _assert_scaled(getattr(got, f), getattr(want, f), MODE_BUDGET,
+                       f"{name} {f}", flips=once and not (f == "n"
+                                                          and mode.nx))
+    np.testing.assert_allclose(float(got.llk), float(want.llk),
+                               rtol=LLK_BUDGET)
+    np.testing.assert_allclose(float(got.count), float(want.count),
+                               rtol=1e-6)
+
+
+def test_k1_modes_differ_from_the_default(rng):
+    """Each mode of CASES but fast2 moves the sums away from the default
+    tier by more than ten times the budget it is held to against JAX, so
+    the parity above tells the modes apart.  fast2's polynomial is within
+    5.3e-6 of exp2, so its sums sit within a few 1e-6 of the default's:
+    they differ from them, and ``test_fast_exp2_equals_jax_bit_trick``
+    tells the two exponentials apart element by element."""
+    jg, tg = both_gmms(rng, 16, 7)
+    x, w = _frames(rng, 130, 7)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    default = ck.em_stats_reference(xt, wt, tg, chunk=32)
+    scale = float(default.sum_xx.abs().max())
+    for name, tkw, _ in CASES:
+        got = ck.em_stats_reference(xt, wt, tg, chunk=32, **tkw)
+        dev = max(float((getattr(got, f) - getattr(default, f)).abs().max())
+                  for f in ("sum_x", "sum_xx"))
+        if name == "fast2":
+            assert dev > 0, name
+        else:
+            assert dev > 10 * MODE_BUDGET * scale, name
+
+
+def test_fast_math_spellings_are_one_mode(rng):
+    """``mxu_precision="default"`` is fastMath bit for bit, and
+    ``compute_dtype=bfloat16`` with ``stats_pass="bf16"`` too (both one
+    bf16 pass for the stats); ``"high"`` is the default tier.  The
+    outputs are equal to the digit, the mode records equal, and a CPU
+    call launches nothing."""
+    _, tg = both_gmms(rng, 16, 7)
+    x, w = _frames(rng, 130, 7)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    before = dict(ck.launch_counts)
+    fields = ("n", "sum_x", "sum_xx", "llk", "count")
+    for exp_mode in ("exp2", "exp", "fast2"):
+        fm = ck.em_stats_fused(xt, wt, tg, compute_dtype=torch.bfloat16,
+                               exp_mode=exp_mode)
+        for kw in (dict(mxu_precision="default"),
+                   dict(mxu_precision="DEFAULT"),
+                   dict(compute_dtype=torch.bfloat16, stats_pass="bf16"),
+                   dict(compute_dtype=torch.bfloat16,
+                        mxu_precision="highest")):
+            got = ck.em_stats_fused(xt, wt, tg, exp_mode=exp_mode, **kw)
+            assert all(torch.equal(getattr(got, f), getattr(fm, f))
+                       for f in fields), kw
+        default = ck.em_stats_fused(xt, wt, tg, exp_mode=exp_mode)
+        high = ck.em_stats_fused(xt, wt, tg, mxu_precision="high",
+                                 exp_mode=exp_mode)
+        assert all(torch.equal(getattr(high, f), getattr(default, f))
+                   for f in fields)
+    assert ck.launch_counts == before
+    assert ck.check_mode(None, "default") == ck.TIER_MODES[2]
+    assert ck.check_mode(None, "high") == ck.TIER_MODES[0]
+    assert ck.check_mode(torch.float32, "Highest") == ck.Mode(6, "exp2", "6")
+
+
+def test_mode_records_and_launch_keys():
+    """51 distinct arithmetics per kernel; the four tiers keep their keys
+    and ids; every mode's keywords give it back; each has a launch count
+    of its own for each kernel, starting at 0 after a reset."""
+    modes = ck.all_modes()
+    assert len(modes) == len(set(modes)) == 51
+    assert modes[:4] == list(ck.TIER_MODES)
+    assert ck.TIERS == ("", "fastStats", "fastMath", "fastMath+fastStats")
+    for tier in range(4):
+        cdt = torch.bfloat16 if tier >= 2 else None
+        sp = "bf16nx" if tier & 1 else "x3"
+        assert ck.check_tier(cdt, sp) == tier
+        assert ck.check_mode(cdt, stats_pass=sp) == ck.TIER_MODES[tier]
+    names = [m.name for m in modes]
+    assert len(set(names)) == 51
+    assert "exp_mode=fast2,stats_pass=bf16" in names
+    assert "stats_pass=bf16x2p" in names
+    for m in modes:
+        assert ck.check_mode(**m.kwargs()) == m
+        lp, em, form, nx = m.kernel_args()
+        assert (lp, ck.EXP_MODES[em], ck.STATS_FORMS[form], bool(nx)) == (
+            m.logit_passes, m.exp_mode, m.stats, m.nx)
+    ck.reset_launch_counts()
+    assert len(ck.launch_counts) == 102
+    assert not any(ck.launch_counts.values())
+
+
+def test_exp_mode_params_round_the_unscaled_matrix(rng):
+    """``exp_mode="exp"`` keeps B and cst in the natural base
+    (pallas_kernels.py:289-293 skip the scaling), and one-pass logits
+    round that unscaled B to bf16 as the JAX wrapper does (:294-295);
+    the base-2 modes scale first, then round (the existing fastMath
+    rule)."""
+    jg, tg = both_gmms(rng, 16, 7)
+    nat = ck.kernel_params(tg)
+    assert torch.equal(ck.mode_params(tg, ck.Mode(3, "exp", "3")), nat)
+    assert torch.equal(ck.mode_params(tg, ck.Mode(6, "exp", "6")), nat)
+    one = ck.mode_params(tg, ck.Mode(1, "exp", "1"))
+    mi = np.asarray(jg.means * jg.cov_inv)
+    want = np.concatenate([-0.5 * np.asarray(jg.cov_inv).T, mi.T], axis=0)
+    want = np.asarray(jnp.asarray(want, jnp.float32).astype(jnp.bfloat16)
+                      .astype(jnp.float32))
+    np.testing.assert_array_equal(np_of(one[:14]), want)
+    assert torch.equal(one[14], nat[14])
+    assert torch.equal(ck.mode_params(tg, ck.Mode(1, "fast2", "1")),
+                       ck.mode_params(tg, ck.TIER_MODES[2]))
+
+
+def test_fast_exp2_equals_jax_bit_trick():
+    """``_fast_exp2`` of the port against the JAX function on 2e5 values
+    over [-130, 0] and the edges (-inf clamps to -120): equal within one
+    f32 ulp (XLA may contract a multiply-add of the polynomial; the port
+    rounds each operation, as its kernel does), and within the fit's
+    5.3e-6 of exp2 where it does not clamp."""
+    v = np.concatenate([np.linspace(-130.0, 0.0, 200_000),
+                        [-np.inf, -120.0, -119.5, -1e-7, 0.0]]
+                       ).astype(np.float32)
+    got = np_of(ck._fast_exp2(torch.from_numpy(v)))
+    want = np.asarray(jfast_exp2(jnp.asarray(v)))
+    np.testing.assert_array_max_ulp(got, want, maxulp=1)
+    live = v > -120
+    rel = np.abs(got[live] / np.exp2(v[live].astype(np.float64)) - 1)
+    assert rel.max() < 5.4e-6
+
+
+def _f64_stats(x, w, tg):
+    """float64 n, sum_x, sum_xx of x (N, D)."""
+    x64, w64 = x.astype(np.float64), w.astype(np.float64)
+    ci = np_of(tg.cov_inv).astype(np.float64)
+    m = np_of(tg.means).astype(np.float64)
+    wts = np_of(tg.weights).astype(np.float64)
+    cst = (-0.5 * (x.shape[1] * np.log(2 * np.pi) - np.log(ci).sum(-1))
+           - 0.5 * (m * m * ci).sum(-1) + np.log(wts))
+    ld = -0.5 * (x64 ** 2) @ ci.T + x64 @ (m * ci).T + cst
+    g = np.exp(ld - ld.max(-1, keepdims=True))
+    g = g / g.sum(-1, keepdims=True) * w64[:, None]
+    return g.sum(0), g.T @ x64, g.T @ (x64 ** 2)
+
+
+def test_six_pass_product_is_closer_to_float64(rng):
+    """The six-pass bf16 product (``_dot6``) against float64 is more than
+    ten times closer than the three-pass one (``_dot3``) on random f32
+    operands, and K1 at ``mxu_precision="highest"`` sits closer to the
+    float64 stats than the default tier in every array."""
+    u = torch.from_numpy(rng.standard_normal((64, 80)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((80, 48)).astype(np.float32))
+    exact = u.double() @ v.double()
+    e6 = float((ck._dot6(u, v).double() - exact).abs().max())
+    e3 = float((ck._dot3(u, v).double() - exact).abs().max())
+    assert e6 * 10 < e3
+    _, tg = both_gmms(rng, 16, 7)
+    x, w = _frames(rng, 256, 7)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    high = ck.em_stats_reference(xt, wt, tg, mxu_precision="highest")
+    default = ck.em_stats_reference(xt, wt, tg)
+    for f, want in zip(("n", "sum_x", "sum_xx"), _f64_stats(x, w, tg)):
+        dh = float(np.abs(np_of(getattr(high, f)) - want).max())
+        dd = float(np.abs(np_of(getattr(default, f)) - want).max())
+        assert dh < dd, f
+
+
+# -- stochastic rounding ------------------------------------------------------
+
+def _np_philox(ctr, key):
+    """Philox4x32-10 in numpy uint64 (a second implementation, from the
+    published algorithm): the four words of each counter; ctr: (4, n)
+    uint64."""
+    m32 = np.uint64(0xFFFFFFFF)
+    c = [np.asarray(a, np.uint64) & m32 for a in ctr]
+    k0, k1 = np.uint64(key[0]) & m32, np.uint64(key[1]) & m32
+    for r in range(10):
+        if r:
+            k0 = (k0 + np.uint64(0x9E3779B9)) & m32
+            k1 = (k1 + np.uint64(0xBB67AE85)) & m32
+        p0 = np.uint64(0xD2511F53) * c[0]          # < 2^64: exact
+        p1 = np.uint64(0xCD9E8D57) * c[2]
+        c = [(p1 >> np.uint64(32)) ^ c[1] ^ k0, p1 & m32,
+             (p0 >> np.uint64(32)) ^ c[3] ^ k1, p0 & m32]
+    return c
+
+
+def test_sr_bits_match_a_numpy_philox():
+    """The plain generator equals a numpy reimplementation on a few
+    counters (p: word (frame mod 2) + 2 (bit 3 of the component) of the
+    counter (frame div 2, component with bit 3 cleared, 0); xa·s: word
+    column mod 4 of the counter (frame, column div 4, 1)), and both give
+    Random123's published answers for Philox4x32-10 (kat_vectors: zeros,
+    all ones, the digits of pi)."""
+    kat = [((0, 0, 0, 0), (0, 0),
+            (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+           ((0xffffffff,) * 4, (0xffffffff, 0xffffffff),
+            (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+           ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+            (0xa4093822, 0x299f31d0),
+            (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1))]
+    for ctr, key, want in kat:
+        got = ck.philox4x32(tuple(torch.tensor([c], dtype=torch.int64)
+                                  for c in ctr), key)
+        assert tuple(int(g) for g in got) == want
+        assert tuple(int(w[0]) for w in _np_philox([[c] for c in ctr],
+                                                   key)) == want
+    seed = 0x1234_5678_9ABC_DEF0
+    frames = torch.tensor([[0, 1, 7], [2**32 + 5, 10**12, 3]])
+    u1, u2, u3, m32 = (np.uint64(1), np.uint64(2), np.uint64(3),
+                       np.uint64(0xFFFFFFFF))
+    for op in (ck.SR_OPERAND_P, ck.SR_OPERAND_XS):
+        got = np_of(ck.sr_bits(seed, op, frames, 19))
+        assert got.shape == (2, 3, 19)
+        f = np.repeat(np_of(frames).reshape(-1).astype(np.uint64), 19)
+        col = np.tile(np.arange(19, dtype=np.uint64), frames.numel())
+        if op == ck.SR_OPERAND_P:
+            row, ccol = f >> u1, col & ~np.uint64(8)
+            word = (f & u1) + ((col >> u3) & u1) * u2
+        else:
+            row, ccol, word = f, col >> u2, col & u3
+        words = _np_philox([row & m32, row >> np.uint64(32), ccol,
+                            np.full_like(col, op)],
+                           (seed & 0xFFFFFFFF, seed >> 32))
+        want = np.choose(word.astype(np.int64), words)
+        np.testing.assert_array_equal(
+            got.reshape(-1), (want & np.uint64(0xFFFF)).astype(np.int64))
+
+
+def test_sr_rounds_to_a_bf16_neighbour_without_bias():
+    """Stochastic rounding of 2e5 values: each result is one of the two
+    bf16 values around its input (the input itself where it is a bf16
+    value), and the mean rounding error is within 4 sigma of 0, sigma
+    the standard error of the per-element errors."""
+    rng = np.random.default_rng(11)
+    v = (rng.standard_normal(200_000) * np.exp(rng.uniform(-8, 8, 200_000))
+         ).astype(np.float32)
+    v[:1000] = np_of(torch.from_numpy(v[:1000]).to(torch.bfloat16).float())
+    vt = torch.from_numpy(v)
+    bits = ck.sr_bits(5, ck.SR_OPERAND_P, torch.arange(v.size), 1)[:, 0]
+    got = np_of(ck._sr_round(vt, bits))
+    down = (v.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+    up = ((v.view(np.uint32) & np.uint32(0xFFFF0000))
+          + np.uint32(0x10000)).view(np.float32)
+    assert np.all((got == down) | (got == up))
+    assert np.array_equal(got[:1000], v[:1000])
+    assert np.array_equal(got, np_of(torch.from_numpy(got).to(
+        torch.bfloat16).float()))
+    err = (got.astype(np.float64) - v) / np.abs(v)      # relative error
+    sem = err.std() / np.sqrt(err.size)
+    assert abs(err.mean()) < 4 * sem
+    # deterministic rounding of the same values is not what SR gives
+    assert not np.array_equal(got, np_of(vt.to(torch.bfloat16).float()))
+
+
+def test_sr_result_does_not_depend_on_chunk_and_follows_its_seed(rng):
+    """``"bf16sr"`` keys its bits on the global frame index, so chunks of
+    16 and 64 frames give the same stats up to f32 reordering (1e-6 of
+    scale); the same seed gives the same result to the digit, another
+    seed a different one; and the SR stats sit within the one-pass budget
+    (2e-3 of scale) of the deterministic bf16 pass."""
+    _, tg = both_gmms(rng, 16, 7)
+    x, w = _frames(rng, 256, 7)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    kw = dict(stats_pass="bf16sr", seed=3)
+    a = ck.em_stats_reference(xt, wt, tg, chunk=16, **kw)
+    b = ck.em_stats_reference(xt, wt, tg, chunk=64, **kw)
+    for f in ("n", "sum_x", "sum_xx"):
+        _assert_scaled(getattr(a, f), getattr(b, f), 1e-6, f)
+    again = ck.em_stats_fused(xt, wt, tg, chunk=16, **kw)
+    assert all(torch.equal(getattr(again, f), getattr(
+        ck.em_stats_reference(xt, wt, tg, **kw), f))
+        for f in ("n", "sum_x", "sum_xx", "llk"))
+    other = ck.em_stats_reference(xt, wt, tg, chunk=16, stats_pass="bf16sr",
+                                  seed=4)
+    assert not torch.equal(other.sum_x, a.sum_x)
+    det = ck.em_stats_reference(xt, wt, tg, chunk=16, stats_pass="bf16")
+    for f in ("n", "sum_x", "sum_xx"):
+        _assert_scaled(getattr(a, f), getattr(det, f), 2e-3, f)
+    assert float(a.llk) == float(det.llk)

@@ -445,3 +445,36 @@ def test_a_failing_shard_releases_the_others():
 
     with pytest.raises(ValueError, match="shard 2 failed"):
         mesh.run(body)
+
+
+def test_shard_threads_make_their_library_handles_first(monkeypatch):
+    """A mesh's shard threads make their cuBLAS / cuSOLVER handles when they
+    start (``Mesh.run`` hands the pool ``_thread_handles`` and the mesh's
+    CUDA devices, none for a CPU mesh); a handle that fails is made once
+    more after the cached blocks are returned, and a second failure
+    raises."""
+    seen = []
+    monkeypatch.setattr(tmesh, "_thread_handles", seen.append)
+    mesh = tmesh.make_mesh(2, 1, [torch.device("cpu")] * 2)
+    assert sorted(mesh.run(lambda sh: sh.data).values()) == [0, 1]
+    assert seen and all(devs == [] for devs in seen)    # one per thread
+    monkeypatch.undo()
+    calls, emptied = [], []
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: emptied.append(1))
+
+    def flaky(dev):
+        calls.append(dev)
+        if len(calls) == 1:
+            raise RuntimeError("CUSOLVER_STATUS_INTERNAL_ERROR")
+
+    monkeypatch.setattr(tmesh, "_create_handles", flaky)
+    tmesh._thread_handles([torch.device("cuda", 0), torch.device("cuda", 1)])
+    assert len(calls) == 3 and len(emptied) == 1
+
+    def broken(dev):
+        raise RuntimeError("CUSOLVER_STATUS_INTERNAL_ERROR")
+
+    monkeypatch.setattr(tmesh, "_create_handles", broken)
+    with pytest.raises(RuntimeError):
+        tmesh._thread_handles([torch.device("cuda", 0)])
+
