@@ -140,7 +140,11 @@ printed as it ends; any failure raises and the exit code is non-zero:
             imply, and a rerun of Segmentation equal to the digit.  Then
             the Viterbi kernel against the plain loop for exact equality
             of the path (N=30,000 S=5; N=1 S=1; inactive states; a
-            60,000-frame decode), timed.
+            60,000-frame decode; every instance S = 1, 2, 3, 5, 8, 9, 16,
+            17, 32 at the ring's and the backtrace's chunk edges; back
+            pointers filling shared memory and one row over), timed at
+            N=30,000 and 60,000 with ns and SM cycles a step beside the
+            chain's estimate.
 12. serving a ``SpkDetServer`` on an ephemeral localhost port with phase
             8's world (K=2048, D=39) and normalised features, driven
             through ``RemoteSpkDetClient``: load_world, send_features +
@@ -183,9 +187,12 @@ printed as it ends; any failure raises and the exit code is non-zero:
             tool run with ``torchDevice cpu`` within 1e-3 of scale.  Then
             the SVM dual kernel against its plain loop (N = 55 from the
             main path, linear, rbf, linear with targetPenalty; N = 1,001,
-            a synthetic background at d = 79,872, linear and rbf): α,
+            a synthetic background at d = 79,872, linear and rbf; the
+            plan's regime edges N = 64, 65, 232, 233, 600, 928, 929 and
+            4,096): α,
             decisions, the dual objective, a rerun equal to the digit,
-            times (median of 3; the plain loop on the card once).  Prints
+            times at N = 55, 1,001, 4,096 (median of 3; µs a FISTA step;
+            the chain estimate; the plain loop on the card once).  Prints
             each tool's wall, K1 and svm_dual device ms and launches per
             tool, the SVM, nap and dotProduct EERs.
 14. parallel numThread on the one card: meshes of shards of cuda:0 (one
@@ -259,6 +266,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -1591,7 +1599,7 @@ def viterbi_bound(n: int, s: int) -> tuple[float, str]:
     in, the path out, each once) over the memory rate and the 2·N·S² adds
     and compares over the f32 rate.  Both are microseconds: what limits
     any Viterbi is its chain of N dependent steps, which this bound does
-    not see."""
+    not see (``viterbi_chain_cycles``)."""
     t_bytes = (4 * n * s + 4 * s * s + 8 * n) / HBM_BYTES_PER_S
     t_ops = 2 * n * s * s / F32_FLOPS_PER_S
     if t_ops >= t_bytes:
@@ -1599,11 +1607,40 @@ def viterbi_bound(n: int, s: int) -> tuple[float, str]:
     return t_bytes * 1e3, "bytes"
 
 
+# latencies on the H100, in SM cycles, of the instructions on the chain
+# of a Viterbi step (scripts/torch_small_kernels_probe.py: a warp's
+# exchange through shared memory, STS + __syncwarp + LDS, 28; LDS 29;
+# FADD and FMNMX 4)
+EXCHANGE_CYCLES, ALU_CYCLES = 29, 4
+
+
+def viterbi_chain_cycles(s: int) -> int:
+    """Cycles of one step's dependent chain in csrc/viterbi.cu: the
+    deltas' exchange, an add, ceil(log2 SP) levels of fmaxf, the
+    emission's add."""
+    sp = s if s <= 8 else (16 if s <= 16 else 32)
+    return EXCHANGE_CYCLES + ALU_CYCLES * (2 + math.ceil(math.log2(sp)))
+
+
+def sm_clock_hz() -> float:
+    """The SM clock nvidia-smi reads now (right after a timed loop the
+    card is still at its working clock)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.split()[0]) * 1e6
+
+
 def check_viterbi(dev):
     """The Viterbi kernel against the plain loop, path for path, at the
-    diarization shape, at the smallest shape, with inactive states and on
-    a 60,000-frame decode; timed at N=30,000 and N=60,000.  Returns the
-    kernels-line entry (without the launch counts)."""
+    diarization shape, at the smallest shape, with inactive states, on a
+    60,000-frame decode, at every kernel instance (S = 1, 2, 3, 5, 8, 9,
+    16, 17, 32) at the edges of the ring's 64-step chunks and of the
+    backtrace's 256 chunks, and where the back pointers fill the shared
+    memory exactly and overflow it into device memory; timed at N=30,000
+    and N=60,000 (S=5), with ns and SM cycles a step beside the chain's
+    estimate.  Returns the kernels-line entry (without the launch
+    counts)."""
     rng = np.random.default_rng(7)
 
     def case(n, s, active=None):
@@ -1615,33 +1652,55 @@ def check_viterbi(dev):
         return (torch.from_numpy(em).to(dev),
                 torch.log(torch.from_numpy(t.astype(np.float32))).to(dev))
 
+    full = seg_hmm.BP_SHARED_BYTES // 5 + 1
+    shapes = [(30000, 5, None), (1, 1, None), (30000, 5, 3), (2, 32, None),
+              (1025, 2, None), (full, 5, None), (full + 1, 5, None)]
+    shapes += [(n, s, None) for s in (1, 2, 3, 5, 8, 9, 16, 17, 32)
+               for n in (65, 257, 258)]
     mismatches = 0
-    for n, s, active in ((30000, 5, None), (1, 1, None), (30000, 5, 3),
-                         (2, 32, None), (1025, 2, None)):
+    for n, s, active in shapes:
         em, lt = case(n, s, active)
         got = seg_hmm.viterbi_cuda(em, lt)
         torch.cuda.synchronize()
-        want = seg_hmm.viterbi_reference(em, lt)
+        want = seg_hmm.viterbi_reference(em.cpu(), lt.cpu()).to(dev)
         bad = int((got != want).sum())
-        print(f"  viterbi N={n} S={s} active={active or s}: "
-              f"{bad} of {n} states differ from the plain loop")
+        if bad or n >= 1000:
+            print(f"  viterbi N={n} S={s} active={active or s}: "
+                  f"{bad} of {n} states differ from the plain loop")
         mismatches += bad
         if active:
             check(int(got.max()) < active, "viterbi stays in active states")
+    print(f"  viterbi: {len(shapes)} shapes against the plain loop, "
+          f"{mismatches} states differ")
     check(mismatches == 0, "viterbi_cuda equals the plain loop exactly")
     times = {}
     for n in (30000, 60000):
         em, lt = case(n, 5)
-        k_ms, p_ms, got, want = timed_pair(
-            lambda: seg_hmm.viterbi_cuda(em, lt),
-            lambda: seg_hmm.viterbi_reference(em, lt))
+        if n == 30000:
+            k_ms, p_ms, got, want = timed_pair(
+                lambda: seg_hmm.viterbi_cuda(em, lt),
+                lambda: seg_hmm.viterbi_reference(em, lt))
+        else:                  # the long decode: the kernel alone timed
+            seg_hmm.viterbi_cuda(em, lt)
+            k_ms = statistics.median(
+                cuda_ms(lambda: seg_hmm.viterbi_cuda(em, lt))
+                for _ in range(3))
+            p_ms = None
+            got = seg_hmm.viterbi_cuda(em, lt)
+            want = seg_hmm.viterbi_reference(em.cpu(), lt.cpu()).to(dev)
+        hz = sm_clock_hz()
         check(torch.equal(got, want), f"viterbi N={n} timed paths equal")
         b_ms, b_by = viterbi_bound(n, 5)
+        chain = viterbi_chain_cycles(5)
+        chain_ms = 1e3 * chain * (n - 1) / hz
         times[n] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                     "bound_by": b_by}
         print(f"  viterbi N={n} S=5: kernel {k_ms:.3f} ms "
-              f"({1e6 * k_ms / n:.1f} ns a step), plain loop {p_ms:.1f} ms, "
-              f"bound {b_ms:.2e} ms by {b_by}")
+              f"({1e6 * k_ms / n:.1f} ns, {1e-3 * k_ms * hz / n:.1f} SM "
+              f"cycles a step at {hz / 1e6:.0f} MHz), plain loop "
+              + (f"{p_ms:.1f} ms" if p_ms else "not timed")
+              + f", bound {b_ms:.2e} ms by {b_by}, chain "
+              f"estimate {chain} cycles a step = {chain_ms:.3f} ms")
     return {"name": "viterbi", "route": "cuda", "source": VITERBI_SOURCE,
             "replaces": "lia_ral_tpu/seg/hmm.py:71 (lax.scan; no TPU "
                         "kernel)",
@@ -2109,22 +2168,70 @@ SVM_TOL = 1e-3          # α (of max C), decisions and card-vs-CPU (of scale)
 SVM_OBJ_RTOL = 1e-4     # dual objective, kernel against the plain loop
 POLY_CPU_FILES = 10     # PolyExp's card-vs-CPU check reads the first 10
 SVM_SOURCE = "lia_ral_tpu_torch/csrc/svm_dual.cu"
+# the regimes' edges of the kernel's plan (one warp to 64 vectors, one
+# block to 232, a cluster holding Q above, a cluster streaming it), and
+# the timed N: the main path's, the background's and a large cohort's
+SVM_REGIME_N = (64, 65, tsvm.RESIDENT_LIMIT, tsvm.RESIDENT_LIMIT + 1, 600,
+                928, 929, 4096)
+SVM_TIMED_N = (55, SVM_BG + 1, 4096)
 
 
-def svm_bound(n: int, n_iter: int = 500) -> tuple[float, str]:
-    """(bound ms, by) of one dual solve: the larger of the bytes (K once,
-    y and C in, α out) over the memory rate and the f32 operations (17 +
-    n_iter matvecs of 2N², and n_iter + 1 projections of 50 bisection
-    steps of 5 operations an element) over the f32 rate.  Both are
-    microseconds; the dependent chain that limits the solve is an
-    estimate in PERF.md."""
+def latent_svm_problem(n: int, dev, d: int = 512):
+    """N // 10 targets against the rest, vectors with a 16-dimensional
+    latent structure under 0.3 of noise (seed n)."""
+    rng = np.random.default_rng(n)
+    basis = rng.standard_normal((16, d)).astype(np.float32) / 4.0
+    x = (rng.standard_normal((n, 16)).astype(np.float32) @ basis
+         + 0.3 * rng.standard_normal((n, d)).astype(np.float32))
+    x[:n // 10] += basis[0]
+    y = np.r_[np.ones(n // 10), -np.ones(n - n // 10)].astype(np.float32)
+    return (torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+
+
+# SM cycles of the solver's chain (csrc/svm_dual.cu), an estimate from
+# its instructions and the latencies scripts/torch_small_kernels_probe.py
+# measures on the H100: a bisection round in one warp issues ~480
+# instructions (31 mids; 31 x 2 candidate terms of 4 FP instructions in
+# the FMA form of +-1 labels; the transpose-reduce's 31 shuffles, 62
+# selects and 31 adds; the ballot and the walk) and waits on ~260 cycles
+# of latency (five shuffle levels of 26, the ballot, the five-step walk,
+# the mids' five levels); a combine of several warps adds a
+# __syncthreads (20), of several blocks a cluster barrier (906 for 16);
+# a matvec issues 11 instructions (three 16-byte shared loads, eight
+# FMAs) for each 4 columns of a thread's two rows
+SVM_ROUND_CYCLES, SVM_SYNC_CYCLES, SVM_CLUSTER_SYNC_CYCLES = 740, 20, 906
+
+
+def svm_bound(n: int, n_iter: int = 500, hz: float = 1.98e9) -> dict:
+    """``bound_ms`` and ``bound_by`` of one dual solve: the larger of the
+    bytes (K once, y and C in, α out) over the memory rate and the f32
+    operations (17 + n_iter matvecs of 2N², and n_iter + 1 projections of
+    50 bisection steps of 5 operations an element) over the f32 rate,
+    both microseconds; and ``chain_ms``, the estimate of the dependent
+    chain that really limits it (``SVM_ROUND_CYCLES`` and the rest, for
+    the regime of ``tsvm.solve_plan``, at the SM clock ``hz``; a streaming
+    matvec at the cluster's share of 64 bytes a cycle an SM from L2).
+    The estimate is printed, not put in the kernels line: its cycle
+    counts are constants of earlier probe runs, not this run's."""
     t_bytes = 4 * (n * n + 3 * n) / HBM_BYTES_PER_S
     ops = ((tsvm.POWER_STEPS + 1 + n_iter) * 2 * n * n
            + (n_iter + 1) * tsvm.BISECTION_STEPS * 5 * n)
     t_ops = ops / F32_FLOPS_PER_S
-    if t_ops >= t_bytes:
-        return t_ops * 1e3, "operations"
-    return t_bytes * 1e3, "bytes"
+    plan = tsvm.solve_plan(n)
+    sync = (SVM_CLUSTER_SYNC_CYCLES if plan.cluster > 1 else
+            SVM_SYNC_CYCLES if plan.threads > 32 else 0)
+    rounds = tsvm.BISECTION_STEPS // tsvm.TREE_LEVELS
+    projection = (rounds + 1) * (sync + 100) + rounds * SVM_ROUND_CYCLES
+    if plan.resident:
+        matvec = plan.vec_len // 4 * 11 + sync
+    else:
+        matvec = 4 * plan.rows * plan.vec_len / 64 + sync
+    cycles = ((n_iter + 1) * projection
+              + (tsvm.POWER_STEPS + 1 + n_iter) * matvec)
+    out = {"bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "chain_ms": 1e3 * cycles / hz}
+    return out
 
 
 def dual_objective(k, y, alpha) -> float:
@@ -2154,8 +2261,16 @@ def check_svm_dual(x55, y55, dev):
     float64: the default C puts α in the low bits of a ≈ lr), within
     twice the distance between the plain loop and itself run in reversed
     element order.  The dual objective within SVM_OBJ_RTOL, a rerun equal
-    to the digit; the kernel timed (median of 3, CUDA events) at both N.
-    Returns the kernels-line entry (without the launch counts)."""
+    to the digit.  Then each regime of the kernel's plan at its edges
+    (one warp at N = 64, one block at 65 and 232, a two-block cluster at
+    233, seven blocks at 600, sixteen at 928, the streaming cluster at 929
+    and 4,096) on latent-structure problems of
+    512 dimensions, linear, against the plain loop on the CPU alike.  The
+    kernel timed (median of 3, CUDA events) at N = 55, 1,001 and 4,096,
+    with µs a FISTA step (one matvec and one projection: the time of 500
+    steps less that of 0, over 500) and the chain estimate of
+    ``svm_bound``.  Returns the kernels-line entry (without the launch
+    counts)."""
     rng = np.random.default_rng(13)
     d = x55.shape[1]
     basis = rng.standard_normal((32, d), dtype=np.float32) / np.float32(
@@ -2184,6 +2299,10 @@ def check_svm_dual(x55, y55, dev):
              ("N=55 linear targetPenalty 10", x55, y55, "linear", 10.0, False),
              (f"N={SVM_BG + 1} linear", xb, yb, "linear", None, False),
              (f"N={SVM_BG + 1} rbf", xb, yb, "rbf", None, False)]
+    for n in SVM_REGIME_N:
+        xr, yr = latent_svm_problem(n, dev)
+        cases.append((f"N={n} linear ({tsvm.solve_plan(n).regime})", xr, yr,
+                      "linear", None, False))
     worst, times, plain_ms = 0.0, {}, None
     for label, x, y, kind, penalty, on_card in cases:
         k, c_vec = problem(x, y, kind, penalty)
@@ -2226,14 +2345,28 @@ def check_svm_dual(x55, y55, dev):
               and abs(og - ow) <= SVM_OBJ_RTOL * abs(ow),
               f"svm_dual {label} agrees with the plain loop")
         worst = max(worst, da)
-        if kind == "linear" and penalty is None:
+        n = x.shape[0]
+        if kind == "linear" and penalty is None and n in SVM_TIMED_N \
+                and n not in times:
             ms = statistics.median(
                 cuda_ms(lambda: tsvm.dual_solve_cuda(k, y, c_vec))
                 for _ in range(3))
-            b_ms, b_by = svm_bound(x.shape[0])
-            times[x.shape[0]] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by}
-            print(f"  svm_dual {label}: kernel {ms:.3f} ms (median of 3), "
-                  f"bound {b_ms:.2e} ms by {b_by}"
+            ms0 = statistics.median(
+                cuda_ms(lambda: tsvm.dual_solve_cuda(k, y, c_vec, n_iter=0))
+                for _ in range(3))
+            hz = sm_clock_hz()
+            bound = svm_bound(n, hz=hz)
+            plan = tsvm.solve_plan(n)
+            times[n] = {"ms": ms, "bound_ms": bound["bound_ms"],
+                        "bound_by": bound["bound_by"],
+                        "step_us": 1e3 * (ms - ms0) / 500}
+            print(f"  svm_dual {label}: kernel {ms:.3f} ms (median of 3; "
+                  f"{plan.regime}, {plan.cluster} block(s) of "
+                  f"{plan.threads} threads), "
+                  f"{times[n]['step_us']:.2f} us a FISTA step (matvec and "
+                  f"projection), bound {bound['bound_ms']:.2e} ms by "
+                  f"{bound['bound_by']}, chain estimate "
+                  f"{bound['chain_ms']:.3f} ms at {hz / 1e6:.0f} MHz"
                   + (f", plain loop on the card {plain_ms:.1f} ms (once)"
                      if on_card else ""))
         del k, got, again, want, dec_g, dec_w
@@ -2242,7 +2375,8 @@ def check_svm_dual(x55, y55, dev):
                         "no TPU kernel)",
             "max_abs_err": worst, **times[x55.shape[0]], "plain_ms": plain_ms,
             "library_ms": None,
-            "shapes": {f"N={SVM_BG + 1}": times[SVM_BG + 1]}}
+            "shapes": {f"N={n}": times[n] for n in SVM_TIMED_N
+                       if n != x55.shape[0]}}
 
 
 def principal_sin(a, b) -> float:

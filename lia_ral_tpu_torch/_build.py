@@ -123,11 +123,22 @@ def _bind(name: str, lib) -> None:
                                            *mode, p, p, p]
         lib.lia_bw_stats_wgmma.restype = i
     elif name == "viterbi":
-        lib.lia_viterbi.argtypes = [p, p, ll, i, f, p, p, p]
+        lib.lia_viterbi.argtypes = [p, p, ll, i, f, p, p, p, p]
         lib.lia_viterbi.restype = i
+        lib.lia_viterbi_shared_bytes.argtypes = []
+        lib.lia_viterbi_shared_bytes.restype = i
     else:
-        lib.lia_svm_dual.argtypes = [p, p, p, p, i, i, i, p]
+        # k, y, c, alpha, Q scratch; B, N, n_iter; the plan: cluster,
+        # threads, rows, tile, resident; the stream
+        lib.lia_svm_dual.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                     p]
         lib.lia_svm_dual.restype = i
+        lib.lia_svm_max_cluster.argtypes = [i]
+        lib.lia_svm_max_cluster.restype = i
+        lib.lia_svm_shared_bytes.argtypes = [i, i, i, i]
+        lib.lia_svm_shared_bytes.restype = ll
+        lib.lia_svm_shared_limit.argtypes = []
+        lib.lia_svm_shared_limit.restype = i
 
 
 def library(name: str = "gmm_stats"):

@@ -7,12 +7,18 @@ setup Svm.cpp:91-119 — linear kernel by default, C defaulting to
 setup).  The SMO solver is replaced, as in the JAX package, by FISTA
 projected-gradient ascent on the dual with an exact bisection projection.
 
-That solver is 16 power steps and 500 FISTA steps of 51 block-wide sums
-each: in the JAX package one ``jax.jit`` executable of two nested
-``lax.scan`` loops.  Written as eager PyTorch it would be some 2·10⁵ tiny
-launches a target, so a CUDA tensor goes through a hand-written kernel,
-``dual_solve_cuda`` (``csrc/svm_dual.cu``), that runs the whole loop in
-one thread block per problem; a CPU tensor goes through
+That solver is 16 power steps and 500 FISTA steps of a 50-step
+bisection each: in the JAX package one ``jax.jit`` executable of two
+nested ``lax.scan`` loops.  Written as eager PyTorch it would be some
+2·10⁵ tiny launches a target, so a CUDA tensor goes through a
+hand-written kernel, ``dual_solve_cuda`` (``csrc/svm_dual.cu``), that runs
+the whole loop in one launch: Q = K∘yyᵀ formed once and held on chip,
+each projection's bisection as 10 rounds of a 31-candidate tree.  Where Q
+goes is the host's plan (``solve_plan``): in one thread block's shared
+memory up to ``RESIDENT_LIMIT`` vectors (one warp up to 64), a slice of
+its rows in each block of a thread-block cluster above that, and streamed
+through each block's ring of column tiles from a scratch copy in device
+memory where the slices do not fit.  A CPU tensor goes through
 ``dual_solve_reference``, the same loop op for op.  Dispatch is on the
 tensor's device, with no fallback: a CUDA tensor launches the kernel or
 raises.  ``launch_counts["svm_dual"]`` counts the kernel's launches (one
@@ -29,12 +35,110 @@ import dataclasses
 import numpy as np
 import torch
 
-# α, α_prev, momentum, the projection's input, y and C of one problem
-# live in shared memory: 24 bytes a training vector, 196,608 bytes at this
-# limit (a block may use 232,448)
-MAX_VECTORS = 8192
+MAX_VECTORS = 8192              # the most training vectors of a problem
 POWER_STEPS, BISECTION_STEPS = 16, 50
+TREE_LEVELS = 5                 # bisection levels a round of the kernel
 launch_counts = {"svm_dual": 0}
+
+# the kernel's layout (csrc/svm_dual.cu): shared memory a block may use;
+# the broadcast vector, the warps' and the blocks' exchange buffers (in
+# floats); a thread owns two rows; a cluster has at most 16 blocks.  A
+# copy, so that the plan is made without a card; the library's
+# lia_svm_shared_bytes / lia_svm_shared_limit give the kernel's own
+# figures, and the card tests hold every plan's to them
+SMEM_BYTES = 232_448
+EXCHANGE_FLOATS = 2 * 32 * 32 + 2 * 16 * 32
+MAX_CLUSTER = 16
+MAX_THREADS = 256
+MIN_TILE, STREAM_THREADS = 32, 128
+
+
+def row_stride(cols: int) -> int:
+    """Floats a row of Q takes in shared memory: ``cols`` rounded up to a
+    multiple of 4 whose quarter is odd, so eight lanes' 16-byte reads of
+    eight consecutive rows fall in eight bank groups."""
+    s = -(-cols // 4) * 4
+    return s + 4 if (s // 4) % 2 == 0 else s
+
+
+def _threads(rows: int) -> int:
+    return -(-rows // 64) * 32            # two rows a thread, whole warps
+
+
+def _resident_bytes(n: int, rows: int) -> int:
+    vlen = -(-n // 4) * 4
+    return 4 * (vlen + EXCHANGE_FLOATS + rows * row_stride(vlen))
+
+
+@dataclasses.dataclass(frozen=True)
+class SolvePlan:
+    """How ``csrc/svm_dual.cu`` runs one problem of N vectors: a cluster
+    of ``cluster`` blocks of ``threads`` threads, ``rows`` rows of Q a
+    block, Q's slices ``resident`` in shared memory or streamed in
+    ``tile`` columns at a time (then ``vec_len`` floats a row of the
+    scratch copy); ``smem`` bytes of shared memory a block."""
+    regime: str             # "one-warp", "one-block", "cluster", "streaming"
+    cluster: int
+    threads: int
+    rows: int
+    resident: bool
+    tile: int
+    vec_len: int
+    smem: int
+
+
+def solve_plan(n: int, max_cluster: int = MAX_CLUSTER) -> SolvePlan:
+    """The kernel's plan for N training vectors: Q whole in one block
+    where it fits (``RESIDENT_LIMIT``; one warp up to 64 vectors), else
+    the smallest cluster whose blocks hold their slices of Q's rows, else
+    the largest cluster the card co-schedules (``max_cluster``) streaming
+    its slices in the widest power-of-two column tiles (at least 32) whose
+    two-stage ring fits beside the vector."""
+    if not 1 <= n <= MAX_VECTORS:
+        raise ValueError(f"svm dual solve: N = {n} outside "
+                         f"1..{MAX_VECTORS}")
+    vlen = -(-n // 4) * 4
+    for cs in range(1, max(max_cluster, 1) + 1):
+        rows = -(-n // cs)
+        if _resident_bytes(n, rows) <= SMEM_BYTES:
+            regime = ("cluster" if cs > 1 else
+                      "one-warp" if n <= 64 else "one-block")
+            return SolvePlan(regime, cs, _threads(rows), rows, True, 0,
+                             vlen, _resident_bytes(n, rows))
+    cs = max_cluster
+    rows = -(-n // cs)
+    threads = max(_threads(rows), STREAM_THREADS)
+    tile = MIN_TILE
+    best = None
+    while tile < n:
+        vlen = -(-n // tile) * tile
+        smem = 4 * (vlen + EXCHANGE_FLOATS + 2 * rows * (tile + 4))
+        if smem > SMEM_BYTES:
+            break
+        best = SolvePlan("streaming", cs, threads, rows, False, tile, vlen,
+                         smem)
+        tile *= 2
+    if best is None or threads > MAX_THREADS:
+        raise ValueError(f"svm dual solve: N = {n} needs a cluster of more "
+                         f"than the {max_cluster} blocks this card "
+                         "co-schedules")
+    return best
+
+
+RESIDENT_LIMIT = max(n for n in range(1, 512)
+                     if _resident_bytes(n, n) <= SMEM_BYTES)
+_max_cluster: list = []
+
+
+def card_max_cluster() -> int:
+    """The largest cluster of the kernel that the card co-schedules (the
+    kernel library's ``cudaOccupancyMaxActiveClusters`` query, once)."""
+    if not _max_cluster:
+        from .._build import library
+
+        _max_cluster.append(int(library("svm_dual").lia_svm_max_cluster(
+            MAX_THREADS)))
+    return _max_cluster[0]
 
 
 def reset_launch_counts() -> None:
@@ -145,9 +249,10 @@ def dual_solve_reference(k: torch.Tensor, y: torch.Tensor,
 def dual_solve_cuda(k: torch.Tensor, y: torch.Tensor, c_vec: torch.Tensor,
                     n_iter: int = 500) -> torch.Tensor:
     """The CUDA kernel of ``csrc/svm_dual.cu``: the same solve as
-    ``dual_solve_reference``, one thread block per problem.  k (N, N) or
-    (B, N, N), y and c_vec (N,) or (B, N): contiguous f32 CUDA tensors,
-    N ≤ ``MAX_VECTORS``."""
+    ``dual_solve_reference``, one launch for B problems, each on the
+    blocks of its ``solve_plan`` (one block up to ``RESIDENT_LIMIT``
+    vectors, a cluster above).  k (N, N) or (B, N, N), y and c_vec (N,) or
+    (B, N): contiguous f32 CUDA tensors, N ≤ ``MAX_VECTORS``."""
     for label, t in (("k", k), ("y", y), ("c_vec", c_vec)):
         if t.device.type != "cuda":
             raise ValueError(f"dual_solve_cuda: {label} on {t.device} has "
@@ -170,20 +275,25 @@ def dual_solve_cuda(k: torch.Tensor, y: torch.Tensor, c_vec: torch.Tensor,
                          "device")
     if n > MAX_VECTORS:
         raise ValueError(f"dual_solve_cuda: {n} training vectors exceed "
-                         f"the {MAX_VECTORS} that one thread block's shared "
-                         "memory holds")
+                         f"the kernel's {MAX_VECTORS}")
     from .._build import library
 
-    lib = library("svm_dual")
     dev = kb.device
-    alpha = torch.empty((b, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.lia_svm_dual(kb.data_ptr(), yb.data_ptr(), cb.data_ptr(),
-                               alpha.data_ptr(), b, n, n_iter,
-                               torch.cuda.current_stream(dev).cuda_stream)
+        lib = library("svm_dual")
+        plan = solve_plan(n, card_max_cluster())
+        alpha = torch.empty((b, n), dtype=torch.float32, device=dev)
+        qbuf = (None if plan.resident else
+                torch.empty((b, n, plan.vec_len), dtype=torch.float32,
+                            device=dev))
+        err = lib.lia_svm_dual(
+            kb.data_ptr(), yb.data_ptr(), cb.data_ptr(), alpha.data_ptr(),
+            None if qbuf is None else qbuf.data_ptr(), b, n, n_iter,
+            plan.cluster, plan.threads, plan.rows, plan.tile,
+            int(plan.resident), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dual_solve_cuda: CUDA kernel launch failed "
-                           f"(cudaError {err})")
+                           f"(cudaError {err}, plan {plan})")
     launch_counts["svm_dual"] += 1
     return alpha if batched else alpha[0]
 

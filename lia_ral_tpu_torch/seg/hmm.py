@@ -6,7 +6,10 @@ states = GMMs + transition matrix) and the ALIZE ViterbiAccum consumed by
 ``viterbiDecoding`` (Tools.cpp:1021).  The emission matrix is one batched
 GMM pass over the stacked states; the frame-sequential Viterbi recursion
 is a hand-written CUDA kernel for CUDA tensors (``viterbi_cuda``,
-``csrc/viterbi.cu``) and a plain loop for CPU ones
+``csrc/viterbi.cu``: one warp runs the recursion near its dependent
+chain, the whole block derives the back pointers from the stored deltas
+and backtraces by composing chunk maps;
+``viterbi_plan`` gives its layout) and a plain loop for CPU ones
 (``viterbi_reference``).  In the JAX package the recursion is a
 ``lax.scan`` that XLA compiles, so the kernel replaces no TPU kernel; it
 exists because an eager loop of three tiny ops a frame costs seconds a
@@ -31,6 +34,51 @@ from ..gmm.scoring import stack_gmms
 
 MAX_STATES = 32                 # one warp holds a step of the recursion
 launch_counts = {"viterbi": 0}
+
+# the kernel's layout (csrc/viterbi.cu): one block of 256 threads; a ring
+# of three 64-step slots of emissions (sized for 32 states); the 256
+# chunk maps of 32 states and their top states, in bytes; the back
+# pointers' bytes that shared memory holds beside them.  A copy for
+# planning without a card: on the card the wrapper takes the split from
+# the library (lia_viterbi_shared_bytes)
+VITERBI_THREADS = 256
+RING_STEPS, RING_SLOTS = 64, 3
+BP_SHARED_BYTES = (232_448 - 1024 - RING_SLOTS * RING_STEPS * 32 * 4
+                   - VITERBI_THREADS * 32 - VITERBI_THREADS)
+
+
+@dataclasses.dataclass(frozen=True)
+class ViterbiPlan:
+    """How ``csrc/viterbi.cu`` decodes N frames of S states: the chain
+    warp's ``chunks`` ring chunks of ``RING_STEPS`` steps (the last
+    ``tail_steps`` long), its deltas' device scratch (``delta_floats``:
+    N·S and 32 for the idle lanes); ``backtrace_rows`` rows of back
+    pointers a thread of the backtrace (the N − 1 rows in
+    ``VITERBI_THREADS`` contiguous chunks); the back pointers' bytes in
+    shared memory and in device memory."""
+    chunks: int
+    tail_steps: int
+    delta_floats: int
+    backtrace_rows: int
+    shared_bp_bytes: int
+    device_bp_bytes: int
+
+
+def viterbi_plan(n: int, s: int, bp_shared: int = BP_SHARED_BYTES
+                 ) -> ViterbiPlan:
+    """The kernel's layout for N frames and S states (plain arithmetic,
+    the kernel's own), with ``bp_shared`` bytes of back pointers in shared
+    memory.  The kernel's indices are 32-bit and the largest it forms is
+    (N + 127)·S (its emission ring reads up to two chunks ahead), so it
+    takes (N + 128)·S + 32 < 2^31."""
+    if n < 1 or not 1 <= s <= MAX_STATES or (n + 128) * s + 32 >= 2 ** 31:
+        raise ValueError(f"viterbi: N = {n}, S = {s} outside N >= 1, "
+                         f"1 <= S <= {MAX_STATES}, (N + 128)·S + 32 < 2^31")
+    chunks = -(-n // RING_STEPS)
+    bp = (n - 1) * s
+    return ViterbiPlan(chunks, n - (chunks - 1) * RING_STEPS, n * s + 32,
+                       -(-(n - 1) // VITERBI_THREADS),
+                       min(bp, bp_shared), max(bp - bp_shared, 0))
 
 
 def reset_launch_counts() -> None:
@@ -138,8 +186,9 @@ def viterbi_reference(emissions: torch.Tensor,
 def viterbi_cuda(emissions: torch.Tensor,
                  log_trans: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel of ``csrc/viterbi.cu``: the same path as
-    ``viterbi_reference``, state for state.  emissions (N, S) and
-    log_trans (S, S): contiguous f32 CUDA tensors, S ≤ 32."""
+    ``viterbi_reference``, state for state, in one launch of one block
+    (layout: ``viterbi_plan``).  emissions (N, S) and log_trans (S, S):
+    contiguous f32 CUDA tensors, S ≤ 32, (N + 128)·S + 32 < 2^31."""
     for label, t in (("emissions", emissions), ("log_trans", log_trans)):
         if t.device.type != "cuda":
             raise ValueError(f"viterbi_cuda: {label} on {t.device} has no "
@@ -156,6 +205,9 @@ def viterbi_cuda(emissions: torch.Tensor,
     if not 1 <= s <= MAX_STATES:
         raise ValueError(f"viterbi_cuda: {s} states outside "
                          f"1..{MAX_STATES}")
+    if (n + 128) * s + 32 >= 2 ** 31:
+        raise ValueError(f"viterbi_cuda: N = {n}, S = {s}: (N + 128)·S + "
+                         "32 exceeds the kernel's 32-bit indices")
     if log_trans.shape != (s, s) or log_trans.device != emissions.device:
         raise ValueError(f"viterbi_cuda: log_trans {tuple(log_trans.shape)} "
                          f"on {log_trans.device} does not fit emissions "
@@ -164,12 +216,18 @@ def viterbi_cuda(emissions: torch.Tensor,
 
     lib = library("viterbi")
     dev = emissions.device
-    back = torch.empty((max(n * s, 1),), dtype=torch.uint8, device=dev)
+    # the forward's deltas, and the back pointers past the shared
+    # memory's share (the library's own figure)
+    plan = viterbi_plan(n, s, lib.lia_viterbi_shared_bytes())
+    deltas = torch.empty((plan.delta_floats,), dtype=torch.float32,
+                         device=dev)
+    back = torch.empty((max(plan.device_bp_bytes, 1),), dtype=torch.uint8,
+                       device=dev)
     path = torch.empty((n,), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         err = lib.lia_viterbi(
             emissions.data_ptr(), log_trans.data_ptr(), n, s, math.log(s),
-            back.data_ptr(), path.data_ptr(),
+            deltas.data_ptr(), back.data_ptr(), path.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"viterbi_cuda: CUDA kernel launch failed "

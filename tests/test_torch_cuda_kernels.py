@@ -31,9 +31,12 @@ import numpy as np
 import pytest
 import torch
 
+from lia_ral_tpu_torch import _build
+from lia_ral_tpu_torch.backend.svm import RESIDENT_LIMIT
 from lia_ral_tpu_torch.convert import gmm_from_numpy
 from lia_ral_tpu_torch.gmm import cuda_kernels as ck
 from lia_ral_tpu_torch.gmm.kernels import EmStats
+from lia_ral_tpu_torch.seg.hmm import compute_transitions
 
 from _torch_parity import cuda_device, np_of, random_gmm_np
 
@@ -566,9 +569,9 @@ def test_jfa_session_stats_run_k2_on_cuda(cuda_device, tmp_path):
                                  (33, 16), (65, 4)])
 def test_viterbi_cuda_equals_plain_loop(cuda_device, n, s):
     """The kernel's path equals ``viterbi_reference``'s state for state
-    (f32 adds and maxima only), at the lengths around its register chunk
-    (32 steps) and backtrace chunk (1024 steps), and it counts one launch;
-    a rerun gives the same path."""
+    (f32 adds and maxima only), at the diarization's length and around
+    the ring's 64-step chunks and the backtrace's 256 chunks, and it
+    counts one launch; a rerun gives the same path."""
     from lia_ral_tpu_torch.seg import hmm
 
     rng = np.random.default_rng(31)
@@ -585,6 +588,45 @@ def test_viterbi_cuda_equals_plain_loop(cuda_device, n, s):
     want = hmm.viterbi_reference(em.cpu(), lt.cpu())
     assert torch.equal(got.cpu(), want)
     assert torch.equal(hmm._viterbi(em, lt), got)
+
+
+def _viterbi_case(n, s, seed):
+    rng = np.random.default_rng(seed)
+    em = torch.from_numpy((rng.standard_normal((n, s)) * 3)
+                          .astype(np.float32))
+    lt = torch.log(torch.from_numpy(compute_transitions(s)
+                                    .astype(np.float32)) + 1e-30)
+    return em, lt
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 5, 8, 9, 16, 17, 32])
+@pytest.mark.parametrize("n", [2, 63, 64, 65, 129, 256, 257, 258, 513])
+def test_viterbi_cuda_every_state_count_at_the_chunk_edges(cuda_device, n,
+                                                           s):
+    """Every instance of the kernel (S exact up to 8, padded to 16 and 32
+    above) at the ring's chunk edges (64 steps) and the backtrace's
+    (N - 1 rows over 256 threads: one row each at N = 257, two at 258)."""
+    from lia_ral_tpu_torch.seg import hmm
+
+    em, lt = _viterbi_case(n, s, 40 + s)
+    got = hmm.viterbi_cuda(em.to(cuda_device), lt.to(cuda_device))
+    assert torch.equal(got.cpu(), hmm.viterbi_reference(em, lt))
+
+
+@pytest.mark.parametrize("s", [5, 32])
+def test_viterbi_cuda_back_pointers_past_shared_memory(cuda_device, s):
+    """Back pointers fill the shared memory exactly, overflow it by one
+    row into the device scratch, and (S = 5) overflow by more than the
+    shared part at N = 60,000: the path equals the plain loop's."""
+    from lia_ral_tpu_torch.seg import hmm
+
+    lib = _build.library("viterbi")
+    assert lib.lia_viterbi_shared_bytes() == hmm.BP_SHARED_BYTES
+    full = hmm.BP_SHARED_BYTES // s + 1
+    for n in (full, full + 1, full + 2) + ((60000,) if s == 5 else ()):
+        em, lt = _viterbi_case(n, s, n)
+        got = hmm.viterbi_cuda(em.to(cuda_device), lt.to(cuda_device))
+        assert torch.equal(got.cpu(), hmm.viterbi_reference(em, lt)), n
 
 
 def test_viterbi_cuda_ties_and_inactive_states(cuda_device):
@@ -757,3 +799,133 @@ def test_svm_dual_cuda_rejects_bad_inputs(cuda_device):
         svm.dual_solve_cuda(torch.zeros((4, 4)), y.cpu(), y.cpu())
     with pytest.raises(ValueError):
         svm.dual_solve_cuda(torch.zeros((4, 5), device=cuda_device), y, y)
+
+
+def _latent_problem(n, kind, seed, device, d=512):
+    """One target against an N - 1 cohort (N // 10 targets from N = 20)
+    of vectors with a 16-dimensional latent structure under noise (as
+    chip_smoke's N = 1,001 problem); rbf takes γ = 1/median d²."""
+    from lia_ral_tpu_torch.backend import svm
+
+    rng = np.random.default_rng(seed)
+    basis = rng.standard_normal((16, d)).astype(np.float32) / 4.0
+    x = (rng.standard_normal((n, 16)).astype(np.float32) @ basis
+         + 0.3 * rng.standard_normal((n, d)).astype(np.float32))
+    n_tgt = max(1, n // 10) if n >= 20 else 1
+    x[:n_tgt] += basis[0]
+    y = np.r_[np.ones(n_tgt), -np.ones(n - n_tgt)].astype(np.float32)
+    xt = torch.from_numpy(x).to(device)
+    gamma = 0.0
+    if kind == "rbf":
+        sq = (xt * xt).sum(1)
+        d2 = sq[:, None] + sq[None, :] - 2.0 * xt @ xt.T
+        gamma = 1.0 / float(d2[d2 > 0].median()) if n > 1 else 1.0
+    k = svm.kernel_matrix(xt, xt, kind, gamma=gamma).contiguous()
+    c = torch.full((n,), svm.default_c(x), device=device)
+    return k, torch.from_numpy(y).to(device), c
+
+
+def _dual_objective(k, y, a):
+    k, y, a = (t.detach().cpu().double() for t in (k, y, a))
+    return float(a.sum() - 0.5 * a @ (k * (y[:, None] * y[None, :])) @ a)
+
+
+# the last N whose slices of Q a 16-block cluster holds in shared memory
+# (tests/test_torch_svm_tree.py pins it); the next streams
+LAST_RESIDENT_N = 928
+REGIME_N = [1, 31, 32, 33, 55, 64, 65, RESIDENT_LIMIT, RESIDENT_LIMIT + 1,
+            600, LAST_RESIDENT_N, LAST_RESIDENT_N + 1, 1001, 4096]
+
+
+@pytest.mark.parametrize("n,kind", [(n, kind) for n in REGIME_N
+                                    for kind in ("linear", "rbf")]
+                         + [(8192, "linear")])
+def test_svm_dual_cuda_every_regime_matches_plain(cuda_device, n, kind):
+    """Each regime of the kernel (one warp, one block, a cluster of 2 to
+    16 blocks holding Q, a 16-block cluster streaming it, up to
+    MAX_VECTORS) against the plain loop on the CPU: α within 1e-3·C, or
+    within twice the distance the plain loop moves when only its element
+    order is reversed; the dual objective within 1e-4; one launch; a
+    rerun equal to the digit."""
+    from lia_ral_tpu_torch.backend import svm
+
+    k, y, c = _latent_problem(n, kind, n, cuda_device)
+    plan = svm.solve_plan(n, svm.card_max_cluster())
+    assert plan.regime == ("one-warp" if n <= 64 else "one-block"
+                           if n <= RESIDENT_LIMIT else "cluster"
+                           if n <= LAST_RESIDENT_N else "streaming")
+    before = svm.launch_counts["svm_dual"]
+    got = svm.dual_solve_cuda(k, y, c)
+    torch.cuda.synchronize()
+    assert svm.launch_counts["svm_dual"] == before + 1
+    want = svm.dual_solve_reference(k.cpu(), y.cpu(), c.cpu())
+    da = float((got.cpu() - want).abs().max())
+    tol = 1e-3 * float(c.max())
+    if da > tol:
+        rev = svm.dual_solve_reference(k.cpu().flip(0).flip(1),
+                                       y.cpu().flip(0),
+                                       c.cpu().flip(0)).flip(0)
+        tol = max(tol, 2 * float((rev - want).abs().max()))
+    assert da <= tol
+    og, ow = _dual_objective(k, y, got), _dual_objective(k, y, want)
+    assert abs(og - ow) <= 1e-4 * abs(ow)
+    assert torch.equal(svm.dual_solve_cuda(k, y, c), got)
+
+
+@pytest.mark.parametrize("n", [55, RESIDENT_LIMIT + 1, 1001])
+def test_svm_dual_cuda_labels_other_than_unit(cuda_device, n):
+    """Labels of magnitude 2 and 0.5 (the JAX op takes any y) keep the
+    plain loop's separate products in the bisection: α within 1e-3·C of
+    the plain loop, or within twice its reversed-order spread."""
+    from lia_ral_tpu_torch.backend import svm
+
+    k, y, c = _latent_problem(n, "linear", n + 1, cuda_device)
+    y = y * torch.where(torch.arange(n, device=cuda_device) % 3 == 0,
+                        2.0, 0.5)
+    got = svm.dual_solve_cuda(k, y, c)
+    want = svm.dual_solve_reference(k.cpu(), y.cpu(), c.cpu())
+    da = float((got.cpu() - want).abs().max())
+    tol = 1e-3 * float(c.max())
+    if da > tol:
+        rev = svm.dual_solve_reference(k.cpu().flip(0).flip(1),
+                                       y.cpu().flip(0),
+                                       c.cpu().flip(0)).flip(0)
+        tol = max(tol, 2 * float((rev - want).abs().max()))
+    assert da <= tol
+    assert torch.equal(svm.dual_solve_cuda(k, y, c), got)
+
+
+@pytest.mark.parametrize("n", [RESIDENT_LIMIT + 1, 1001])
+def test_svm_dual_cuda_batch_equals_single_in_a_cluster(cuda_device, n):
+    """B problems on the grid of clusters: each cluster solves its own
+    problem, digit for digit as alone."""
+    from lia_ral_tpu_torch.backend import svm
+
+    probs = [_latent_problem(n, "linear", seed, cuda_device)
+             for seed in (1, 2)]
+    got = svm.dual_solve_cuda(*(torch.stack(t) for t in zip(*probs)))
+    for i, (k, y, c) in enumerate(probs):
+        assert torch.equal(got[i], svm.dual_solve_cuda(k, y, c))
+
+
+def test_svm_dual_plan_layout_is_the_kernels(cuda_device):
+    """solve_plan's shared-memory figures, which it computes without a
+    card, are the kernel library's own for every N it accepts."""
+    from lia_ral_tpu_torch.backend import svm
+
+    lib = _build.library("svm_dual")
+    assert lib.lia_svm_shared_limit() == svm.SMEM_BYTES
+    for n in range(1, svm.MAX_VECTORS + 1):
+        p = svm.solve_plan(n, svm.card_max_cluster())
+        assert lib.lia_svm_shared_bytes(n, p.rows, p.tile,
+                                        int(p.resident)) == p.smem, p
+
+
+def test_svm_dual_cuda_card_runs_the_largest_cluster(cuda_device):
+    """The card co-schedules the 16-block cluster that the streaming
+    regime needs at MAX_VECTORS."""
+    from lia_ral_tpu_torch.backend import svm
+
+    assert svm.card_max_cluster() == svm.MAX_CLUSTER
+    assert svm.solve_plan(svm.MAX_VECTORS, svm.card_max_cluster()).threads \
+        <= svm.MAX_THREADS
