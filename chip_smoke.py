@@ -125,10 +125,12 @@ printed as it ends; any failure raises and the exit code is non-zero:
             the phase's peak device memory.
 
 11. diar    diarization at the milestone shape of
-            scripts/milestone_diar.py (its generator is copied here): a
-            5-minute conversation of 3 speakers with silence and music,
-            30,000 frames, D=24, through ``python -m lia_ral_tpu_torch``
-            entry points in-process: TrainWorld (three event GMMs of
+            scripts/milestone_diar.py (the generator, init models and
+            scoring helpers of its counterpart
+            scripts/torch_milestone_diar.py): a 5-minute conversation of
+            3 speakers with silence and music, 30,000 frames, D=24,
+            through ``python -m lia_ral_tpu_torch`` entry points
+            in-process: TrainWorld (three event GMMs of
             K=32 on bootstrap samples) → AcousticSegmentation →
             TrainWorld (world, K=128, on the detected speech) →
             TurnDetection → Segmentation (E-HMM, maxSpeakers 5,
@@ -243,11 +245,31 @@ printed as it ends; any failure raises and the exit code is non-zero:
             and smaller in magnitude than the deterministic bf16 pass's
             bias; the kernels' own bias printed beside it (the tensor
             cores' f32 accumulation shifts every mode alike).
+17. milestones the record drivers of scripts/ (torch_milestone_*.py,
+            imported; their ``run`` functions) through the port's tools
+            and API on the card: eer at full width (K=2048, D=39, R=400,
+            PLDA rank 150, corpus v3: 300 held-out dev speakers x 10
+            sessions, 9,600 trials of which 240 target; default tier; cut:
+            one PLDA seed, not the median of 3), jfa at scale small (K=64,
+            channel variation in a rank-8 subspace), plda (R=400, rank
+            150, 10,000 trials; serial against 8 shards of the card),
+            adapt (SpkAdapt WMAP, K=64) and audio (waveform to decision,
+            K=128, a TCP verify).  Checks: the eer dev set is speakers of
+            its own and shares no file with the trials; every score file
+            holds its trial count of finite scores with mean target above
+            mean impostor (raw, ZT-norm, cosine, PLDA; jfa; plda serial
+            and sharded); the PLDA EER under ``MS_PLDA_EER_LIMIT``;
+            sharded PLDA within ``PAR_TOL`` of scale of serial; the
+            adapted EER no higher than the static one; audio scores
+            finite with mean target above mean impostor; K1 launched by
+            eer, adapt and audio, K2 by eer and jfa.  Prints every EER,
+            the verify latencies, the stage walls and launches of each.
 
 The line before the last is one JSON object of per-kernel results, one
 entry per kernel and arithmetic (``launches`` summed over the main paths
-of phases 6, 8-13, 14 and 15, by path in ``launches_by_path``, where
-"parallel-2-processes" counts the two ranks' launches apart; 0 for every
+of phases 6, 8-13, 14, 15 and 17, by path in ``launches_by_path``, where
+"parallel-2-processes" counts the two ranks' launches apart and
+"milestone-<driver>" each record driver's; 0 for every
 arithmetic of phase 16, which no tool reaches; ``check_launches`` from
 the comparisons of phases 3, 4, 7, 8, 11, 13, 14 and 16; ``ms``,
 ``plain_ms``, ``bound_ms``, ``bound_by``, ``library_ms`` from phase 7
@@ -339,6 +361,11 @@ from lia_ral_tpu_torch.parallel.sharding import (sharded_em_stats_2d,
 from lia_ral_tpu_torch.seg import hmm as seg_hmm
 from lia_ral_tpu_torch.tools.iv_norm import load_vectors
 from lia_ral_tpu_torch.utils.shapes import bucket_len
+
+# the record drivers and the parity and sweep scripts of scripts/
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "scripts"))
+import torch_milestone_diar as tdiar  # noqa: E402
 
 K, D, R = 2048, 39, 400
 N_SPK, UTT_PER_SPK, T_UTT = 50, 10, 2000
@@ -1499,9 +1526,9 @@ def run_jfa(d, lists, raw_eer, kernels, dev) -> None:
 
 # -- phase 11: diarization at the milestone shape ------------------------------
 
-DIAR_SPK, DIAR_MINUTES, DIAR_D = 3, 5.0, 24
-DIAR_K_BED, DIAR_K_EVENT, DIAR_K_WORLD = 64, 32, 128
-DIAR_FRAME, DIAR_COLLAR = 0.01, 25
+DIAR_SPK, DIAR_D, DIAR_FRAME = tdiar.N_SPK, tdiar.D_FEAT, tdiar.FRAME
+DIAR_K_EVENT, DIAR_K_WORLD = tdiar.K_EVENT, tdiar.K_UBM
+DIAR_COLLAR = tdiar.TOL_FRAMES
 DIAR_STATE_FRAMES = 24000       # about the conversation's speech frames
 DIAR_MAX_SPEAKERS, DIAR_DECODE_IT, DIAR_RESEG_IT = 5, 3, 4
 # DER limit (full timeline, collar 0): the CPU run of the same corpus
@@ -1514,84 +1541,6 @@ DIAR_DER_LIMIT = 0.08
 DIAR_SAD_LIMIT = 0.01
 VITERBI_SOURCE = "lia_ral_tpu_torch/csrc/viterbi.cu"
 F32_FLOPS_PER_S = 67e12                        # H100 SXM, CUDA cores
-
-
-def gen_conversation(rng):
-    """(features (N,D), ref ids: speaker 0..2, -1 silence, -2 music) —
-    speech turns separated by silence gaps with occasional music, plus a
-    bootstrap sample per acoustic event (the generator of
-    scripts/milestone_diar.py, copied)."""
-    centers = rng.standard_normal((DIAR_K_BED, DIAR_D)) * 2.0
-    spk_w = rng.dirichlet(np.full(DIAR_K_BED, 2.5), size=DIAR_SPK)
-    spk_off = rng.standard_normal((DIAR_SPK, DIAR_K_BED, DIAR_D)) * 0.35
-    mus_centers = rng.standard_normal((8, DIAR_D)) * 2.5
-    sil_mean = np.full(DIAR_D, -3.5)
-
-    def speech(s, n):
-        comp = rng.choice(DIAR_K_BED, size=n, p=spk_w[s])
-        return (centers[comp] + spk_off[s, comp]
-                + rng.standard_normal((n, DIAR_D)) * 0.6)
-
-    def silence(n):
-        return sil_mean + rng.standard_normal((n, DIAR_D)) * 0.25
-
-    def music(n):
-        comp = rng.integers(0, 8, n)
-        return mus_centers[comp] + rng.standard_normal((n, DIAR_D)) * 0.4
-
-    frames, ref = [], []
-    total = int(DIAR_MINUTES * 60 / DIAR_FRAME)
-    cur = 0
-    while cur < total:
-        s = int(rng.integers(DIAR_SPK))
-        n = int(rng.uniform(2.0, 8.0) * 100)
-        frames.append(speech(s, n))
-        ref.extend([s] * n)
-        cur += n
-        roll = rng.random()
-        if roll < 0.55:                       # silence gap
-            n = int(rng.uniform(0.5, 2.0) * 100)
-            frames.append(silence(n))
-            ref.extend([-1] * n)
-            cur += n
-        elif roll < 0.70:                     # music interlude
-            n = int(rng.uniform(2.0, 5.0) * 100)
-            frames.append(music(n))
-            ref.extend([-2] * n)
-            cur += n
-    x = np.concatenate(frames).astype(np.float32)
-    boots = {
-        "boot_speech": np.concatenate(
-            [speech(s, 2000) for s in range(DIAR_SPK)]).astype(np.float32),
-        "boot_silence": silence(2000).astype(np.float32),
-        "boot_music": music(3000).astype(np.float32),
-    }
-    return x, np.asarray(ref), boots
-
-
-def segs_to_frames(segs, n):
-    out = np.full(n, -1, np.int64)
-    names = {}
-    for s in segs:
-        b = int(round(s.begin / DIAR_FRAME))
-        e = min(int(round(s.end / DIAR_FRAME)), n)
-        out[b:e] = names.setdefault(s.label, len(names))
-    return out
-
-
-def speakers_found(ref, hyp) -> int:
-    """Reference speakers that the optimal one-to-one mapping gives a
-    hypothesis speaker holding more than half of their frames."""
-    from scipy.optimize import linear_sum_assignment
-
-    both = (ref >= 0) & (hyp >= 0)
-    r_ids, h_ids = np.unique(ref[both]), np.unique(hyp[both])
-    conf = np.zeros((len(r_ids), len(h_ids)), np.int64)
-    np.add.at(conf, (np.searchsorted(r_ids, ref[both]),
-                     np.searchsorted(h_ids, hyp[both])), 1)
-    ri, hi = linear_sum_assignment(-conf)
-    return int(sum(conf[r, h] > 0.5 * (ref == r_ids[r]).sum()
-                   for r, h in zip(ri, hi)))
 
 
 def viterbi_bound(n: int, s: int) -> tuple[float, str]:
@@ -1715,7 +1664,7 @@ def run_diarization(kernels, dev):
     and times.  Returns the work directory and the speech frame count of
     its label files (phase 13 reads them)."""
     d = temp_dir("lia_chip_smoke_diar_")
-    x, ref, boots = gen_conversation(np.random.default_rng(20260823))
+    x, ref, boots = tdiar.gen_conversation(np.random.default_rng(20260823))
     n = ref.shape[0]
     write_feature_file(os.path.join(d, "conv.prm"), x, fmt="SPRO4")
     for nm, bx in boots.items():
@@ -1734,14 +1683,11 @@ def run_diarization(kernels, dev):
     walls, k_ms, launches = {}, {}, {}
 
     def write_init(name, frames, k):
-        """An init model made with numpy from a seed (k frames as means,
-        the global variance), so that the card and a CPU rehearsal train
-        from the same start: torch's CPU and CUDA generators differ."""
-        pick = np.random.default_rng(k).choice(frames.shape[0], k,
-                                               replace=False)
-        gmm_from_numpy(np.full(k, 1.0 / k), frames[pick],
-                       np.tile(1.0 / frames.var(0), (k, 1))).save(
-            os.path.join(d, name + ".gmm"))
+        """An init model made with numpy (the diarization driver's: k
+        frames as means, the frames' variance), so that the card and a CPU
+        rehearsal train from the same start: torch's CPU and CUDA
+        generators differ."""
+        tdiar.init_gmm(frames, k).save(os.path.join(d, name + ".gmm"))
 
     def run(label, tool, args):
         k1, vit = ck.launch_counts["em_stats_fused"], \
@@ -1814,9 +1760,9 @@ def run_diarization(kernels, dev):
     ders, found = {}, {}
     for label, sg in (("Segmentation", segs), ("ReSegmentation", rsegs)):
         hyp = np.full(n, -1, np.int64)
-        hyp[sp_idx] = segs_to_frames(sg, len(sp_idx))
+        hyp[sp_idx] = tdiar.segs_to_frames(sg, len(sp_idx))
         ders[label] = (der(ref, hyp), der(ref, hyp, DIAR_COLLAR))
-        found[label] = speakers_found(ref, hyp)
+        found[label] = tdiar.speakers_found(ref, hyp)
     print(f"  diar: {n} frames, {100 * ref_speech.mean():.1f} % speech; SAD "
           f"frame error {100 * sad_err:.3f} %; {len(turns) - 1} turns "
           f"detected; speakers found {found['Segmentation']} of 3 "
@@ -3158,17 +3104,6 @@ def run_parallel(xu, mask, workdir, gu_dir, gu_lists, kernels, dev):
           f"{shown(compare)}")
 
 
-def load_script(name: str):
-    """scripts/<name>.py (an import-safe script) as a module."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(name, os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "scripts", name + ".py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 # -- phase 15: the oracle parity run -----------------------------------------
 
 ORACLE_TOL = 1e-3       # per-trial LLR (absolute); i-vectors (of scale)
@@ -3177,7 +3112,7 @@ ORACLE_TOL = 1e-3       # per-trial LLR (absolute); i-vectors (of scale)
 def run_oracle_parity(kernels, dev) -> None:
     """Phase 15: scripts/torch_oracle_parity.py at scale small on the
     card: the port's CLI chain against the f64 oracle, stage by stage."""
-    top = load_script("torch_oracle_parity")
+    import torch_oracle_parity as top
     ck.reset_launch_counts()
     res = top.run(temp_dir("lia_chip_smoke_oracle_"), top.SCALES["small"],
                   dev.type, threads=os.cpu_count() or 8)
@@ -3224,8 +3159,8 @@ def run_modes(kernels, dev) -> None:
     its plain version at full width, timed, with its bound and its
     occupancy error against float64 (the tiers' error printed too), and
     the checks of stochastic rounding."""
-    fused = load_script("torch_sweep_fused")
-    sweep_bw = load_script("torch_sweep_bw")
+    import torch_sweep_bw as sweep_bw
+    import torch_sweep_fused as fused
     x, w, gmm = fused.make_problem(dev)
     xu = x.view(sweep_bw.S, sweep_bw.T, D)      # sweep_bw.make_problem's
     wu = w.view(sweep_bw.S, sweep_bw.T)
@@ -3461,6 +3396,125 @@ def check_sr(x, w, gmm, xu, wu, xo, wo, n64, n_oracle, dev) -> None:
           f"(torch.mm, out_dtype float32) {tc_txt}, f32 on the CUDA cores "
           f"(TF32 {torch.backends.cuda.matmul.allow_tf32}) {simt:.3e}; the "
           f"kernel's bf16 shift {shift['bf16'][0] - shift['bf16'][1]:.3e}")
+
+
+# -- phase 17: the record drivers --------------------------------------------
+
+# the eer driver's full scale (corpus v3: K=2048, D=39, R=400, PLDA rank
+# 150, 300 held-out dev speakers x 10 sessions, 240 target trials) with
+# one PLDA seed
+MS_EER_SCALE = "full"
+MS_PLDA_EER_LIMIT = 0.25        # the full-width eer run's PLDA EER, below
+
+
+def check_scores(label, stats, n_trials) -> None:
+    """Each score file of a record: its trial count, finite scores and
+    mean target score above mean impostor score."""
+    for name, st in stats.items():
+        check(st["n"] == n_trials and st["finite"],
+              f"{label} {name}: {st['n']} finite scores of {n_trials}")
+        check(st["tgt_mean"] > st["imp_mean"],
+              f"{label} {name}: mean target score {st['tgt_mean']:.4f} "
+              f"above mean impostor score {st['imp_mean']:.4f}")
+
+
+def run_milestones(kernels, dev) -> None:
+    """Phase 17: the record drivers of scripts/ through the port's tools
+    on the card — torch_milestone_eer at full width (default tier, one
+    PLDA seed), torch_milestone_jfa at scale small, torch_milestone_plda
+    (serial against 8 shards of the card), torch_milestone_adapt and
+    torch_milestone_audio — with their checks; each driver's launches
+    join ``launches_by_path`` as "milestone-<driver>"."""
+    import torch_milestone_adapt as tadapt
+    import torch_milestone_audio as taudio
+    import torch_milestone_eer as teer
+    import torch_milestone_jfa as tjfa
+    import torch_milestone_plda as tplda
+
+    recs = {}
+    p = teer.SCALES[MS_EER_SCALE]
+    rec = recs["eer"] = teer.run(temp_dir("lia_chip_smoke_ms_eer_"), p,
+                                 dev.type, plda_seeds=(0,),
+                                 scale=MS_EER_SCALE)
+    sh, res = rec["shapes"], rec["results"]
+    print(f"  milestones: eer ({MS_EER_SCALE}: K={sh['K']}, D={sh['D']}, "
+          f"R={sh['R']}, PLDA rank {sh['plda_rank']}, {sh['n_trials']} "
+          f"trials, {sh['n_target_trials']} target; dev set "
+          f"{sh['n_dev_sessions']} sessions of {sh['n_dev_speakers']} "
+          f"speakers): EER raw {100 * res['gmm_raw_eer']:.3f} %, ZT-norm "
+          f"{100 * res['gmm_ztnorm_eer']:.3f} %, cosine "
+          f"{100 * res['iv_cosine_eer']:.3f} %, PLDA "
+          f"{100 * res['iv_plda_eer']:.3f} %")
+    # the dev speakers are generator speakers n_spk + n_imp + s, none of
+    # them a target or an impostor; no dev session is a trial's file
+    check(sh["dev_trial_shared_files"] == 0
+          and sh["n_dev_speakers"] == p["n_dev"]
+          and sh["n_dev_sessions"] == p["n_dev"] * p["sess"],
+          "eer: a held-out dev set of its own speakers")
+    check_scores("eer", rec["score_stats"], sh["n_trials"])
+    check(res["iv_plda_eer"] < MS_PLDA_EER_LIMIT,
+          f"eer: PLDA EER {res['iv_plda_eer']:.4f} below {MS_PLDA_EER_LIMIT}")
+
+    rec = recs["jfa"] = tjfa.run(temp_dir("lia_chip_smoke_ms_jfa_"),
+                                 tjfa.SCALES["small"], dev.type,
+                                 scale="small")
+    print(f"  milestones: jfa (small: K={rec['shapes']['K']}, rank_v "
+          f"{rec['shapes']['rank_v']}, rank_u {rec['shapes']['rank_u']}, "
+          f"{rec['shapes']['n_trials']} trials): EER "
+          f"{100 * rec['results']['jfa_eer']:.3f} %")
+    check_scores("jfa", rec["score_stats"], rec["shapes"]["n_trials"])
+
+    rec = recs["plda"] = tplda.run(temp_dir("lia_chip_smoke_ms_plda_"),
+                                   tplda.P, dev.type)
+    res = rec["results"]
+    print(f"  milestones: plda (R={rec['shapes']['R']}, rank "
+          f"{rec['shapes']['plda_rank']}, {rec['shapes']['n_trials']} "
+          f"trials, {tplda.SHARDS} shards of the card): EER "
+          f"{100 * res['plda_eer']:.3f} %; sharded vs serial "
+          f"{res['sharded_vs_serial_max_dev']:.3e} "
+          f"({res['sharded_vs_serial_rel']:.3e} of scale)")
+    check(res["sharded_vs_serial_rel"] <= PAR_TOL,
+          f"plda: sharded within {PAR_TOL} of scale of serial")
+    check_scores("plda", rec["score_stats"], rec["shapes"]["n_trials"])
+
+    rec = recs["adapt"] = tadapt.run(temp_dir("lia_chip_smoke_ms_adapt_"),
+                                     tadapt.P, dev.type)
+    res = rec["results"]
+    print("  milestones: adapt: EER " + ", ".join(
+        f"{k} {100 * res[f'{k}_eer']:.3f} %"
+        for k in ("static", "static_znorm", "adapted", "oracle"))
+        + f"; second half static {100 * res['static_eer_h2']:.3f} %, "
+        f"adapted {100 * res['adapted_eer_h2']:.3f} %")
+    check(res["adapted_eer"] <= res["static_eer"],
+          "adapt: the WMAP-adapted EER no higher than the static one")
+
+    rec = recs["audio"] = taudio.run(temp_dir("lia_chip_smoke_ms_audio_"),
+                                     dev.type)
+    res = rec["results"]
+    print(f"  milestones: audio: EER {100 * res['audio_eer']:.3f} % over "
+          f"{res['n_target_trials']} target / {res['n_impostor_trials']} "
+          "impostor trials; verify p50 / p95 ms " + ", ".join(
+              f"{k} {v['p50_ms']:.2f} / {v['p95_ms']:.2f}"
+              for k, v in rec["verify_latency_ms"].items())
+          + f"; TCP verify {res['tcp_verify_wall_ms']:.1f} ms")
+    check(res["finite"] and res["tgt_mean"] > res["imp_mean"],
+          "audio: finite scores, mean target above mean impostor")
+
+    for name, rec in recs.items():
+        print(f"  milestones: {name} walls s " + ", ".join(
+            f"{k} {v:.3f}" for k, v in rec["stage_wall_s"].items())
+            + f"; launches {rec['launches']}")
+    for name in ("eer", "adapt", "audio"):     # the jfa driver's UBM is
+        check(recs[name]["launches"].get("em_stats_fused", 0) > 0,  # given
+              f"{name}: K1 launched")
+    for name in ("eer", "jfa"):
+        check(recs[name]["launches"].get("bw_stats_fused", 0) > 0,
+              f"{name}: K2 launched")
+    for kname, kv in kernels.items():
+        for name, rec in recs.items():
+            got = rec["launches"].get(kname, 0)
+            kv["launches_by_path"][f"milestone-{name}"] = got
+            kv["launches"] += got
 
 
 def cuda_ms(fn) -> float:
@@ -3915,6 +3969,11 @@ def main() -> int:
     t0 = time.perf_counter()
     run_modes(kernels, dev)
     phase("modes", t0)
+
+    # 17. the record drivers: eer at full width, jfa, plda, adapt, audio
+    t0 = time.perf_counter()
+    run_milestones(kernels, dev)
+    phase("milestones", t0)
 
     print(smi[0])
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -4,9 +4,9 @@ reference-semantics oracle (native/oracle.cpp).
 The counterpart of scripts/oracle_parity.py for lia_ral_tpu_torch, which
 imports torch, numpy and the port only.  It
 
-  1. writes the calibrated milestone corpus (a copy of
-     scripts/milestone_eer.py's ``gen_corpus`` and ``SCALES["small"]``,
-     written through the port's ``write_feature_file``),
+  1. writes the calibrated milestone corpus (``gen_corpus`` and
+     ``SCALES`` of scripts/torch_milestone_eer.py, scripts/milestone_eer.py's
+     copied, written through the port's ``write_feature_file``),
   2. runs the port's CLI tools on it (NormFeat → TrainWorld →
      TrainTarget → ComputeTest top-10; TotalVariability → IvExtractor),
      on the card by default (``--device cpu`` for the plain versions),
@@ -41,19 +41,12 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np
 
-# scripts/milestone_eer.py's SCALES["small"] (model K, D, R; corpus; the
-# hardness knobs: per-speaker offsets, per-session channel, noise, the
-# Dirichlet concentration of the per-speaker weights)
-SCALES = {
-    "small": dict(k=256, d=24, r=64, plda=32, n_spk=20, n_imp=10,
-                  n_dev=100, sess=6, t_utt=600, t_test=300, n_test=10,
-                  bg=120_000, ubm_it=4, tv_it=4,
-                  spk_off=0.12, chan=0.45, chan_comp=0.18, noise=0.65,
-                  alpha=5.0),
-}
+# the corpus of scripts/milestone_eer.py (its SCALES and generator)
+from torch_milestone_eer import SCALES, gen_corpus  # noqa: E402,F401
 
 # the JAX package's run of scripts/oracle_parity.py (PARITY.md, the
 # "North-star" table): max and mean deviation per stage
@@ -64,65 +57,6 @@ JAX_FIGURES = {
     "ivector": (1.2e-4, 2.2e-5), "iv_cosine_scores": (3.2e-5, 6.9e-6),
     "gmm_eer_delta_vs_oracle": 0.0, "iv_eer_delta_vs_oracle": 0.0,
 }
-
-
-def gen_corpus(d, p, rng, with_dev=True):
-    """Synthetic NIST-SRE-style corpus over a shared mixture bed (copy of
-    scripts/milestone_eer.py's, same draws in the same order).  Speaker
-    identity lives in per-speaker component weights and small
-    per-speaker component-mean offsets; sessions add a channel offset, a
-    per-component channel and noise."""
-    from lia_ral_tpu_torch.io.features import write_feature_file
-
-    k, dim = 64, p["d"]
-    centers = rng.standard_normal((k, dim)) * 2.0
-    n_all = p["n_spk"] + p["n_imp"] + p["n_dev"]
-    spk_weights = rng.dirichlet(np.full(k, p["alpha"]), size=n_all)
-    spk_offsets = rng.standard_normal((n_all, k, dim)) * p["spk_off"]
-
-    def utt(spk, n):
-        comp = rng.choice(k, size=n, p=spk_weights[spk])
-        chan = rng.standard_normal(dim) * p["chan"]
-        chan_c = rng.standard_normal((k, dim)) * p["chan_comp"]
-        x = (centers[comp] + spk_offsets[spk, comp] + chan + chan_c[comp]
-             + rng.standard_normal((n, dim)) * p["noise"])
-        return x.astype(np.float32)
-
-    names = {"dev": [], "enroll": [], "test": [], "imp_enroll": [],
-             "imp_test": []}
-    write_feature_file(os.path.join(d, "bg.prm"),
-                       np.concatenate([utt(s % n_all, p["bg"] // n_all + 1)
-                                       for s in range(n_all)])[:p["bg"]],
-                       fmt="SPRO4")
-    for s in range(p["n_dev"] if with_dev else 0):
-        for j in range(p["sess"]):
-            nm = f"dev_s{s}_{j}"
-            write_feature_file(os.path.join(d, nm + ".prm"),
-                               utt(p["n_spk"] + p["n_imp"] + s, p["t_utt"]),
-                               fmt="SPRO4")
-            names["dev"].append((f"spk{s}", nm))
-    for s in range(p["n_spk"]):
-        nm = f"enroll_s{s}"
-        write_feature_file(os.path.join(d, nm + ".prm"), utt(s, p["t_utt"]),
-                           fmt="SPRO4")
-        names["enroll"].append((f"model{s}", nm))
-        for j in range(p["n_test"]):
-            nm = f"test_s{s}_{j}"
-            write_feature_file(os.path.join(d, nm + ".prm"),
-                               utt(s, p["t_test"]), fmt="SPRO4")
-            names["test"].append((s, nm))
-    for s in range(p["n_imp"]):
-        nm = f"imp_enroll_{s}"
-        write_feature_file(os.path.join(d, nm + ".prm"),
-                           utt(p["n_spk"] + s, p["t_utt"]), fmt="SPRO4")
-        names["imp_enroll"].append((f"imp{s}", nm))
-        for j in range(2):
-            nm = f"imp_test_{s}_{j}"
-            write_feature_file(os.path.join(d, nm + ".prm"),
-                               utt(p["n_spk"] + s, p["t_test"]),
-                               fmt="SPRO4")
-            names["imp_test"].append(nm)
-    return names
 
 
 def write_bin(path: str, arr: np.ndarray) -> None:

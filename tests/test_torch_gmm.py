@@ -488,6 +488,9 @@ def test_port_imports_no_jax():
         "import lia_ral_tpu_torch.io.native\n"
         "sys.path.insert(0, 'scripts')\n"
         "import torch_oracle_parity, torch_sweep_fused, torch_sweep_bw\n"
+        "import torch_milestone_eer, torch_milestone_plda\n"
+        "import torch_milestone_jfa, torch_milestone_adapt\n"
+        "import torch_milestone_audio, torch_milestone_diar\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
