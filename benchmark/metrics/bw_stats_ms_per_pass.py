@@ -1,0 +1,8 @@
+"""Host-clock milliseconds of the BW-stats call of a pass (the harness's
+span, ending in a synchronise), averaged over the window's passes."""
+
+from benchmark import core
+
+
+def read(ctx):
+    return core.span_ms(ctx, "bench.bw_stats")
