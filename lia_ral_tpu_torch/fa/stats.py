@@ -21,6 +21,7 @@ from ..gmm.cuda_kernels import bw_stats_fused, bw_stats_reference, check_mode
 from ..gmm.kernels import llk_and_posteriors
 from ..gmm.model import GmmDiag
 from ..io.matrix import read_matrix_file, write_matrix_file
+from ..utils.logging import count, span
 from ..utils.shapes import bucket_len, next_pow2
 
 
@@ -94,33 +95,52 @@ def bw_stats_bucketed(entries, gmm: GmmDiag, bucket: int = 2048,
     with same-padded-length peers into (batch, T, D) ``bw_stats_batch``
     calls on the GMM's device; the batch axis is padded to a power of two
     with zero-weight utterances.  Row order == input order.
+
+    Traced (``utils.logging``): spans ``lia.stats.pad`` (host arrays),
+    ``lia.stats.h2d`` (their copy to the device), ``lia.stats.batch``
+    (the batch's stats call: K2 on a card), ``lia.stats.gather`` (rows
+    out, the final stack); counters ``lia.stats.batches``,
+    ``frames_sent`` (rows × padded length), ``frames_carried`` (the
+    utterances' own frames) and ``h2d_bytes``.
     """
     if not entries:
         raise ValueError("bw_stats_bucketed: no readable sessions "
                          "(every utterance of the list failed to load)")
-    d = gmm.dim
-    rows_n: list = [None] * len(entries)
-    rows_f: list = [None] * len(entries)
-    by_len: dict[int, list[int]] = {}
-    for i, (x, _) in enumerate(entries):
-        by_len.setdefault(bucket_len(x.shape[0], bucket), []).append(i)
-    for plen, idxs in by_len.items():
-        for s0 in range(0, len(idxs), batch_size):
-            grp = idxs[s0:s0 + batch_size]
-            b_pad = next_pow2(len(grp))
-            xs = np.zeros((b_pad, plen, d), np.float32)
-            ms = np.zeros((b_pad, plen), np.float32)
-            for j, i in enumerate(grp):
-                x, m = entries[i]
-                xs[j, :x.shape[0]] = x
-                ms[j, :m.shape[0]] = m
-            st = bw_stats_batch(torch.from_numpy(xs).to(gmm.device),
-                                torch.from_numpy(ms).to(gmm.device), gmm,
-                                stats_pass=stats_pass)
-            for j, i in enumerate(grp):
-                rows_n[i] = st.n[j]
-                rows_f[i] = st.f[j]
-    return BwStats(n=torch.stack(rows_n), f=torch.stack(rows_f))
+    with span("lia.fa.bw_stats_bucketed"):
+        d = gmm.dim
+        rows_n: list = [None] * len(entries)
+        rows_f: list = [None] * len(entries)
+        by_len: dict[int, list[int]] = {}
+        for i, (x, _) in enumerate(entries):
+            by_len.setdefault(bucket_len(x.shape[0], bucket), []).append(i)
+        for plen, idxs in by_len.items():
+            for s0 in range(0, len(idxs), batch_size):
+                grp = idxs[s0:s0 + batch_size]
+                b_pad = next_pow2(len(grp))
+                with span("lia.stats.pad"):
+                    xs = np.zeros((b_pad, plen, d), np.float32)
+                    ms = np.zeros((b_pad, plen), np.float32)
+                    carried = 0
+                    for j, i in enumerate(grp):
+                        x, m = entries[i]
+                        xs[j, :x.shape[0]] = x
+                        ms[j, :m.shape[0]] = m
+                        carried += x.shape[0]
+                with span("lia.stats.h2d"):
+                    xd = torch.from_numpy(xs).to(gmm.device)
+                    md = torch.from_numpy(ms).to(gmm.device)
+                count("lia.stats.batches")
+                count("lia.stats.frames_sent", b_pad * plen)
+                count("lia.stats.frames_carried", carried)
+                count("lia.stats.h2d_bytes", xs.nbytes + ms.nbytes)
+                with span("lia.stats.batch"):
+                    st = bw_stats_batch(xd, md, gmm, stats_pass=stats_pass)
+                with span("lia.stats.gather"):
+                    for j, i in enumerate(grp):
+                        rows_n[i] = st.n[j]
+                        rows_f[i] = st.f[j]
+        with span("lia.stats.gather"):
+            return BwStats(n=torch.stack(rows_n), f=torch.stack(rows_f))
 
 
 def save_stats(path: str, stats: BwStats, names: list[str] | None = None

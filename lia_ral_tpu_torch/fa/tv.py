@@ -33,6 +33,7 @@ import torch
 from ..gmm.kernels import frame_llk
 from ..gmm.model import GmmDiag
 from ..io.matrix import read_matrix_file, write_matrix_file
+from ..utils.logging import count, span
 from .stats import BwStats
 
 
@@ -262,9 +263,9 @@ def _posterior_mean_pcg(n_blk, fbar_blk, model: TvModel, tett, tn_flat,
     p = m_inv(res)
     rz = torch.sum(res * p, dim=1, keepdim=True)
     aux_nrm = torch.clamp(torch.linalg.norm(aux, dim=1), min=1e-30)
+    done = 0
     for _ in range(iters):
-        if tol > 0.0 and not bool(
-                torch.max(torch.linalg.norm(res, dim=1) / aux_nrm) > tol):
+        if tol > 0.0 and _pcg_converged(res, aux_nrm, tol):
             break
         ap = torch.bmm(l_mat, p[..., None])[..., 0]
         alpha = rz / torch.clamp(torch.sum(p * ap, dim=1, keepdim=True),
@@ -275,7 +276,18 @@ def _posterior_mean_pcg(n_blk, fbar_blk, model: TvModel, tett, tn_flat,
         rz2 = torch.sum(res * z, dim=1, keepdim=True)
         p = z + (rz2 / torch.clamp(rz, min=1e-30)) * p
         rz = rz2
+        done += 1
+    count("lia.tv.pcg_iters", done)
     return x, torch.linalg.norm(res, dim=1) / aux_nrm
+
+
+def _pcg_converged(res, aux_nrm, tol: float) -> bool:
+    """PCG's exit test: one host read of the block's largest relative
+    residual (span ``lia.tv.pcg_check``, counter ``lia.tv.host_syncs``)."""
+    with span("lia.tv.pcg_check"):
+        count("lia.tv.host_syncs")
+        return not bool(
+            torch.max(torch.linalg.norm(res, dim=1) / aux_nrm) > tol)
 
 
 def estimate_w(stats: BwStats, model: TvModel, chunk: int = 256,
@@ -290,31 +302,40 @@ def estimate_w(stats: BwStats, model: TvModel, chunk: int = 256,
     relative residual, so an i-vector depends on its block's peers below
     ``pcg_tol``; ``pcg_tol=0`` runs exactly ``pcg_iters`` iterations.
     ``return_diag=True`` also returns the per-utterance relative residual
-    ‖L·w − aux‖/‖aux‖ (zeros for Cholesky)."""
+    ‖L·w − aux‖/‖aux‖ (zeros for Cholesky).
+
+    Traced (``utils.logging``): spans ``lia.tv.basis`` (the PCG basis),
+    ``lia.tv.block`` (each solve block), ``lia.tv.pcg_check``; counters
+    ``lia.tv.blocks``, ``pcg_iters`` and ``host_syncs``."""
     if solver not in ("pcg", "cholesky"):
         raise ValueError(f"unknown estimate_w solver {solver}")
-    tett = estimate_tett(model)
-    tn_flat = _tn_flat(model)
-    fbar = stats.centered(model.ubm_means)
-    if solver == "pcg":
-        q, dk = _pcg_basis(model, torch.mean(stats.n, dim=0))
-    ws, rels = [], []
-    for s0 in range(0, stats.n_utts, chunk):
-        n_blk, f_blk = stats.n[s0:s0 + chunk], fbar[s0:s0 + chunk]
+    with span("lia.fa.estimate_w"):
+        tett = estimate_tett(model)
+        tn_flat = _tn_flat(model)
+        fbar = stats.centered(model.ubm_means)
         if solver == "pcg":
-            w_blk, rel = _posterior_mean_pcg(n_blk, f_blk, model, tett,
-                                             tn_flat, q, dk, pcg_iters,
-                                             pcg_tol)
-        else:
-            w_blk = _posterior_mean(n_blk, f_blk, model, tett, tn_flat)
-            rel = torch.zeros((n_blk.shape[0],), dtype=w_blk.dtype,
-                              device=w_blk.device)
-        ws.append(w_blk)
-        rels.append(rel)
-    w = torch.cat(ws)
-    if return_diag:
-        return w, torch.cat(rels)
-    return w
+            with span("lia.tv.basis"):
+                q, dk = _pcg_basis(model, torch.mean(stats.n, dim=0))
+        ws, rels = [], []
+        for s0 in range(0, stats.n_utts, chunk):
+            with span("lia.tv.block"):
+                count("lia.tv.blocks")
+                n_blk, f_blk = stats.n[s0:s0 + chunk], fbar[s0:s0 + chunk]
+                if solver == "pcg":
+                    w_blk, rel = _posterior_mean_pcg(n_blk, f_blk, model,
+                                                     tett, tn_flat, q, dk,
+                                                     pcg_iters, pcg_tol)
+                else:
+                    w_blk = _posterior_mean(n_blk, f_blk, model, tett,
+                                            tn_flat)
+                    rel = torch.zeros((n_blk.shape[0],), dtype=w_blk.dtype,
+                                      device=w_blk.device)
+            ws.append(w_blk)
+            rels.append(rel)
+        w = torch.cat(ws)
+        if return_diag:
+            return w, torch.cat(rels)
+        return w
 
 
 def get_speaker_model(model: TvModel, w: torch.Tensor,

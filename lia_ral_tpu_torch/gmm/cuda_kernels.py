@@ -93,7 +93,9 @@ rounding (~1e-5 of the largest sum; tests/test_torch_stats_kernels.py
 ``bw_stats_fused[exp_mode=fast2,stats_pass=bf16]``, so a run can show
 that its main path went through the kernels.  A spelling that runs an
 existing arithmetic counts under it: ``mxu_precision="high"`` under the
-default, ``"default"`` under fastMath.
+default, ``"default"`` under fastMath.  While a profiler records, the
+CUDA path of each wrapper opens the span ``lia.gmm.<wrapper>`` around
+its scratch allocation and launch (``utils.logging.span``).
 """
 
 from __future__ import annotations
@@ -105,6 +107,7 @@ import threading
 
 import torch
 
+from ..utils.logging import span
 from .kernels import EmStats
 from .model import GmmDiag
 
@@ -630,16 +633,19 @@ def em_stats_fused(x: torch.Tensor, w: torch.Tensor, gmm: GmmDiag,
         chunk = stats_chunk_len(n, k)
     n_chunks = -(-n // chunk)
     lp, em, form, nx = mode.kernel_args()
-    scratch = torch.empty(
-        (lib.lia_stats_scratch_bytes(n, d, k, chunk, n_chunks, n_chunks > 1,
-                                     lp, form),),
-        dtype=torch.uint8, device=x.device)
-    out = torch.empty((k + 1, 2 * d + 2), dtype=torch.float32,
-                      device=x.device)
-    _launch("em_stats_fused", mode, x, lambda stream: lib.lia_em_stats_wgmma(
-        x.data_ptr(), w.data_ptr(), gmm.weights.data_ptr(),
-        gmm.means.data_ptr(), gmm.cov_inv.data_ptr(), n, d, k, chunk, lp, em,
-        form, nx, seed, scratch.data_ptr(), out.data_ptr(), stream))
+    with span("lia.gmm.em_stats_fused"):
+        scratch = torch.empty(
+            (lib.lia_stats_scratch_bytes(n, d, k, chunk, n_chunks,
+                                         n_chunks > 1, lp, form),),
+            dtype=torch.uint8, device=x.device)
+        out = torch.empty((k + 1, 2 * d + 2), dtype=torch.float32,
+                          device=x.device)
+        _launch("em_stats_fused", mode, x,
+                lambda stream: lib.lia_em_stats_wgmma(
+                    x.data_ptr(), w.data_ptr(), gmm.weights.data_ptr(),
+                    gmm.means.data_ptr(), gmm.cov_inv.data_ptr(), n, d, k,
+                    chunk, lp, em, form, nx, seed, scratch.data_ptr(),
+                    out.data_ptr(), stream))
     return EmStats(n=out[:k, 2 * d], sum_x=out[:k, d:2 * d],
                    sum_xx=out[:k, :d], llk=out[k, 0], count=out[k, 1])
 
@@ -670,13 +676,16 @@ def bw_stats_fused(x: torch.Tensor, w: torch.Tensor, gmm: GmmDiag,
     s, t, d = x.shape
     k = gmm.n_components
     lp, em, form, nx = mode.kernel_args()
-    scratch = torch.empty((lib.lia_stats_scratch_bytes(s * t, d, k, t, s, 0,
-                                                       lp, form),),
-                          dtype=torch.uint8, device=x.device)
-    out = torch.empty((s, k + 1, 2 * d + 2), dtype=torch.float32,
-                      device=x.device)
-    _launch("bw_stats_fused", mode, x, lambda stream: lib.lia_bw_stats_wgmma(
-        x.data_ptr(), w.data_ptr(), gmm.weights.data_ptr(),
-        gmm.means.data_ptr(), gmm.cov_inv.data_ptr(), s, t, d, k, lp, em,
-        form, nx, seed, scratch.data_ptr(), out.data_ptr(), stream))
+    with span("lia.gmm.bw_stats_fused"):
+        scratch = torch.empty((lib.lia_stats_scratch_bytes(
+            s * t, d, k, t, s, 0, lp, form),), dtype=torch.uint8,
+            device=x.device)
+        out = torch.empty((s, k + 1, 2 * d + 2), dtype=torch.float32,
+                          device=x.device)
+        _launch("bw_stats_fused", mode, x,
+                lambda stream: lib.lia_bw_stats_wgmma(
+                    x.data_ptr(), w.data_ptr(), gmm.weights.data_ptr(),
+                    gmm.means.data_ptr(), gmm.cov_inv.data_ptr(), s, t, d, k,
+                    lp, em, form, nx, seed, scratch.data_ptr(),
+                    out.data_ptr(), stream))
     return out[:, :k, 2 * d], out[:, :k, d:2 * d], out[:, k, 0]

@@ -17,6 +17,7 @@ from typing import Callable
 
 import torch
 
+from ..utils.logging import span
 from .cuda_kernels import (check_tier, em_stats_fused,
                            em_stats_reference)
 from .kernels import EmStats, em_stats_chunked
@@ -283,30 +284,37 @@ def train_model(generator: torch.Generator, x: torch.Tensor,
     """UBM EM loop — reference trainModel (TrainTools.cpp:993-1028).
 
     ``stats_fn(x, w, gmm) -> EmStats`` defaults to ``default_stats_fn``:
-    kernel K1 on CUDA tensors, the plain chunked path on CPU ones."""
+    kernel K1 on CUDA tensors, the plain chunked path on CPU ones.
+    Traced (``utils.logging``): spans ``lia.gmm.em_iteration`` and
+    ``lia.gmm.m_step`` inside ``lia.gmm.train_model``."""
     if stats_fn is None:
         stats_fn = default_stats_fn(chunk=chunk)
-    _, gcov = global_mean_cov(x, w)
-    gmm = init
-    for it in range(cfg.nb_train_it):
-        floor = schedule_value(cfg.init_variance_flooring,
-                               cfg.final_variance_flooring,
-                               cfg.nb_train_it, it)
-        ceil = schedule_value(cfg.init_variance_ceiling,
-                              cfg.final_variance_ceiling,
-                              cfg.nb_train_it, it)
-        mask = bagged_frame_mask(generator, w, cfg.bagged_frame_probability,
-                                 cfg.bagged_minimal_length,
-                                 cfg.bagged_maximal_length)
-        stats = stats_fn(x, mask, gmm)
-        if verbose:
-            print(f"it {it}: meanLLK={float(stats.mean_llk()):.5f} "
-                  f"frames={float(stats.count):.0f} floor={floor:.3f} "
-                  f"ceil={ceil:.3f}")
-        gmm = _m_step_with_variance_control(stats, floor, ceil, gcov)
-    if cfg.component_reduction and cfg.target_distrib_count > 0:
-        gmm = reduce_model(gmm, cfg.target_distrib_count)
-    return gmm
+    with span("lia.gmm.train_model"):
+        _, gcov = global_mean_cov(x, w)
+        gmm = init
+        for it in range(cfg.nb_train_it):
+            with span("lia.gmm.em_iteration"):
+                floor = schedule_value(cfg.init_variance_flooring,
+                                       cfg.final_variance_flooring,
+                                       cfg.nb_train_it, it)
+                ceil = schedule_value(cfg.init_variance_ceiling,
+                                      cfg.final_variance_ceiling,
+                                      cfg.nb_train_it, it)
+                mask = bagged_frame_mask(generator, w,
+                                         cfg.bagged_frame_probability,
+                                         cfg.bagged_minimal_length,
+                                         cfg.bagged_maximal_length)
+                stats = stats_fn(x, mask, gmm)
+                if verbose:
+                    print(f"it {it}: meanLLK={float(stats.mean_llk()):.5f} "
+                          f"frames={float(stats.count):.0f} floor={floor:.3f} "
+                          f"ceil={ceil:.3f}")
+                with span("lia.gmm.m_step"):
+                    gmm = _m_step_with_variance_control(stats, floor, ceil,
+                                                        gcov)
+        if cfg.component_reduction and cfg.target_distrib_count > 0:
+            gmm = reduce_model(gmm, cfg.target_distrib_count)
+        return gmm
 
 
 def train_model_streams(generator: torch.Generator,

@@ -2,18 +2,31 @@
 
 The reference has only the verbose/verboseLevel/debug globals
 (liatools.h:83-85, SURVEY.md §5 "Tracing/profiling: none").  This is a
-structured logger honouring the same config keys, a wall-clock timing
-block, and ``torch.profiler`` in the place of the JAX package's
-``jax.profiler``: ``profile_trace`` writes a trace of a block, ``annotate``
-names a span inside it.
+structured logger honouring the same config keys, and ``torch.profiler``
+in the place of the JAX package's ``jax.profiler``: ``profile_trace``
+writes a trace of a block, ``span`` names a range inside it and ``count``
+adds to one of the program's ``counters``.
+
+Spans and counters are on only while a profiler records.  A span is then
+a ``record_function`` range, so it lands in the profiler's trace beside
+the launches and device operations it encloses, on their clock, and the
+profiler's correlation ties each kernel and copy to the span open on its
+launching thread; parenthood is nesting on a thread.  With no profiler a
+span is one flag check and a shared no-op context (``record_function``
+itself costs microseconds even then), and ``count`` returns at once.
+Every program span and counter name starts with ``lia.``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
 import os
-import time
+import threading
+
+import torch
+from torch.autograd import profiler as _profiler
 
 _logger = logging.getLogger("lia_ral_tpu_torch")
 _handler = logging.StreamHandler()
@@ -46,23 +59,50 @@ def get_logger(name: str | None = None) -> logging.Logger:
     return _logger if name is None else _logger.getChild(name)
 
 
-@contextlib.contextmanager
-def timed(label: str, level: int = 1):
-    """Wall-clock timing block logged at the given verbose level."""
-    t0 = time.perf_counter()
-    yield
-    dt = time.perf_counter() - t0
-    if verbose_level >= level:
-        _logger.info("%s: %.3fs", label, dt)
+# what the program counts while a profiler records (see ``count``)
+counters = {name: 0 for name in (
+    "lia.stats.batches",        # padded batches of fa.stats.bw_stats_bucketed
+    "lia.stats.frames_sent",    # their frames, padding included (rows x len)
+    "lia.stats.frames_carried",  # their utterances' own frames
+    "lia.stats.h2d_bytes",      # bytes of their host arrays sent to the device
+    "lia.tv.blocks",            # solve blocks of fa.tv.estimate_w
+    "lia.tv.pcg_iters",         # PCG iterations run, summed over blocks
+    "lia.tv.host_syncs",        # host reads of a device value in estimate_w
+)}
+_counter_lock = threading.Lock()    # the shards of a mesh run in threads
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the profiler's trace around a ``with`` block; the
+    shared no-op context while no profiler records."""
+    if not _profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to ``counters[name]`` while a profiler records."""
+    if not _profiler._is_profiler_enabled:
+        return
+    with _counter_lock:
+        counters[name] += int(n)
+
+
+def reset_counters() -> None:
+    """Zero every counter (as ``cuda_kernels.reset_launch_counts`` does
+    its launches)."""
+    for name in counters:
+        counters[name] = 0
 
 
 @contextlib.contextmanager
 def profile_trace(logdir: str):
     """Trace the enclosed block with ``torch.profiler`` (host activity,
     and the card's kernels where CUDA is available) and write it to
-    ``logdir/trace.json`` as a Chrome trace (Perfetto, chrome://tracing).
+    ``logdir/trace.json`` as a Chrome trace (Perfetto, chrome://tracing),
+    and what the block added to ``counters`` to ``logdir/counters.json``.
     Yields the profiler, whose ``key_averages()`` sums time by name."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -70,26 +110,13 @@ def profile_trace(logdir: str):
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     prof = profile(activities=acts)
+    before = dict(counters)
     prof.start()
     try:
         yield prof
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named span in the trace timeline: ``record_function`` for
-    ``torch.profiler``, plus an NVTX range where CUDA is available."""
-    import torch
-
-    nvtx = torch.cuda.is_available()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+        with open(os.path.join(logdir, "counters.json"), "w") as f:
+            json.dump({k: v - before[k] for k, v in counters.items()}, f,
+                      indent=1)

@@ -72,7 +72,7 @@ def main() -> int:
         print("torch_sweep_bw: no CUDA card", file=sys.stderr)
         return 1
     from lia_ral_tpu_torch.gmm import cuda_kernels as ck
-    from lia_ral_tpu_torch.utils.logging import annotate, profile_trace
+    from lia_ral_tpu_torch.utils.logging import profile_trace, span
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -82,7 +82,6 @@ def main() -> int:
     n64 = fused.f64_occupancy(x[:NS], w[:NS], gmm)
     trace = (profile_trace(args.trace) if args.trace
              else contextlib.nullcontext())
-    span = annotate if args.trace else (lambda tag: contextlib.nullcontext())
     n_frames = S * T
     with trace:
         for tag, kw in (("EM-kernel flat x3 (anchor)", {}),

@@ -145,7 +145,7 @@ def main() -> int:
         return 1
     from lia_ral_tpu_torch.gmm import cuda_kernels as ck
     from lia_ral_tpu_torch.gmm.kernels import em_stats_chunked
-    from lia_ral_tpu_torch.utils.logging import annotate, profile_trace
+    from lia_ral_tpu_torch.utils.logging import profile_trace, span
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -155,7 +155,6 @@ def main() -> int:
     n64 = f64_occupancy(x[:NS], w[:NS], gmm)
     trace = (profile_trace(args.trace) if args.trace
              else contextlib.nullcontext())
-    span = annotate if args.trace else (lambda tag: contextlib.nullcontext())
     with trace:
         for tag, kw in rows():
             bench(tag, lambda a, b, kw=kw: ck.em_stats_fused(a, b, gmm,

@@ -321,8 +321,6 @@ def test_logging_honours_config_keys():
     assert tlog.verbose and tlog.verbose_level == 2
     assert tlog.get_logger().getEffectiveLevel() == 20
     assert tlog.get_logger("x").name == "lia_ral_tpu_torch.x"
-    with tlog.timed("block"):
-        pass
     tlog.configure_from(Config({}))
     assert not tlog.verbose and tlog.get_logger().getEffectiveLevel() == 30
 
@@ -330,8 +328,7 @@ def test_logging_honours_config_keys():
 def test_profile_trace_writes_named_spans(tmp_path):
     """``profile_trace`` (the counterpart of the JAX package's
     jax.profiler trace) writes a Chrome trace of its block, and a span of
-    ``annotate`` appears in it and in the profiler's sums by name; on
-    the CPU there is no NVTX range to open."""
+    ``span`` appears in it and in the profiler's sums by name."""
     import json
 
     from lia_ral_tpu_torch.gmm import cuda_kernels as ck
@@ -341,7 +338,7 @@ def test_profile_trace_writes_named_spans(tmp_path):
     x = torch.from_numpy(np.random.default_rng(4).standard_normal(
         (40, 3)).astype(np.float32))
     with tlog.profile_trace(str(tmp_path / "tr")) as prof:
-        with tlog.annotate("em_stats_fused[exp_mode=fast2]"):
+        with tlog.span("em_stats_fused[exp_mode=fast2]"):
             ck.em_stats_fused(x, torch.ones(40), tg, exp_mode="fast2")
     trace = json.loads((tmp_path / "tr" / "trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
