@@ -64,7 +64,10 @@ counters = {name: 0 for name in (
     "lia.stats.batches",        # padded batches of fa.stats.bw_stats_bucketed
     "lia.stats.frames_sent",    # their frames, padding included (rows x len)
     "lia.stats.frames_carried",  # their utterances' own frames
-    "lia.stats.h2d_bytes",      # bytes of their host arrays sent to the device
+    "lia.stats.h2d_bytes",      # bytes of their packed staging slots sent
+                                # (own frames x (D + 1) x 4, and row offsets)
+    "lia.stats.pinned_batches",  # batches sent from page-locked host memory
+    "lia.stats.slot_waits",     # packs that waited for their slot's last copy
     "lia.tv.blocks",            # solve blocks of fa.tv.estimate_w
     "lia.tv.pcg_iters",         # PCG iterations run, summed over blocks
     "lia.tv.host_syncs",        # host reads of a device value in estimate_w

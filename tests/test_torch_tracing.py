@@ -119,7 +119,13 @@ def test_bw_stats_bucketed_spans_nest_and_counters_follow_the_inputs(
     assert counted["lia.stats.batches"] == batches == 6
     assert counted["lia.stats.frames_sent"] == sent
     assert counted["lia.stats.frames_carried"] == sum(LENGTHS)
-    assert counted["lia.stats.h2d_bytes"] == sent * (D + 1) * 4
+    # only the carried frames and mask values go over, with each batch's
+    # row offsets (one int32 more than its rows)
+    offsets = len(LENGTHS) + batches
+    assert counted["lia.stats.h2d_bytes"] == (
+        sum(LENGTHS) * (D + 1) + offsets) * 4
+    assert counted["lia.stats.pinned_batches"] == 0      # the CPU: unpinned
+    assert counted["lia.stats.slot_waits"] == 0
     assert counted["lia.tv.blocks"] == 0
     for name, many in (("lia.stats.pad", batches), ("lia.stats.h2d", batches),
                        ("lia.stats.batch", batches),
