@@ -31,6 +31,7 @@ from ..gmm.em import TrainCfg, train_model
 from ..gmm.map_adapt import MapCfg, adapt_model
 from ..gmm.model import GmmDiag
 from ..gmm.scoring import stack_gmms
+from ..utils.logging import count, recording, span
 from .hmm import (DiarHmm, _log_trans, _viterbi, compute_transitions,
                   path_to_segments, stacked_emission_llk, viterbi_decode)
 
@@ -195,6 +196,63 @@ def _masked_emissions(x: torch.Tensor, gmms: GmmDiag,
                        torch.full_like(em, -1e30))
 
 
+def _host_frames(x, device) -> torch.Tensor:
+    """``_frames``, counting the bytes of a host array sent to the device."""
+    xt = _frames(x, device)
+    if not isinstance(x, torch.Tensor):
+        count("lia.seg.h2d_bytes", xt.numel() * 4)
+    return xt
+
+
+def _path_masks(path: np.ndarray, s: int) -> np.ndarray:
+    """(S, N) 0/1 float32 masks of a state path: row i marks the frames
+    labelled i (a label outside 0..S−1 marks none)."""
+    return (path[None, :] == np.arange(s)[:, None]).astype(np.float32)
+
+
+def _adapt_states(generator: torch.Generator, x: torch.Tensor, build,
+                  world: GmmDiag, map_reg: float) -> GmmDiag:
+    """``_batched_state_adapt`` on the (S, N) masks that ``build()``
+    makes on the host, copied to ``x``'s device."""
+    with span("lia.seg.adapt"):
+        with span("lia.seg.masks"):
+            masks_np = build()
+            masks = torch.as_tensor(masks_np, device=x.device)
+        if recording():
+            count("lia.seg.state_adapts", masks_np.shape[0])
+            count("lia.seg.empty_adapts",
+                  int((~masks_np.any(axis=1)).sum()))
+            count("lia.seg.h2d_bytes", masks_np.nbytes)
+        return _batched_state_adapt(generator, x, masks, world,
+                                    map_reg=map_reg)
+
+
+def _decode(x: torch.Tensor, bank: GmmDiag, active_mask, trans: np.ndarray,
+            with_emissions: bool = False):
+    """One decode of the stacked states: the emissions (inactive states at
+    −1e30), the Viterbi path under the (S, S) transition probabilities
+    ``trans`` on the device, and the path read back to the host, with the
+    (N, S) emissions too where ``with_emissions``.  Returns (path,
+    emissions or None) as numpy arrays."""
+    with span("lia.seg.decode"):
+        log_trans = torch.log(torch.as_tensor(trans, dtype=torch.float32,
+                                              device=x.device))
+        with span("lia.seg.emissions"):
+            em = _masked_emissions(x, bank, active_mask)
+        with span("lia.seg.viterbi"):
+            path_t = _viterbi(em, log_trans)
+        with span("lia.seg.d2h"):
+            path = path_t.cpu().numpy()
+            em_host = em.cpu().numpy() if with_emissions else None
+        n, s = em.shape
+        count("lia.seg.decodes")
+        count("lia.seg.viterbi_frames", n)
+        count("lia.seg.h2d_bytes", (s * s + s) * 4)
+        count("lia.seg.d2h_bytes",
+              path.nbytes + (em_host.nbytes if with_emissions else 0))
+    return path, em_host
+
+
 def e_hmm_segmentation(
     x,
     world: GmmDiag,
@@ -220,37 +278,44 @@ def e_hmm_segmentation(
     ``max_speakers`` makes 1 + (S−1)·(1 + nbDecodeIt) batched adaptations
     (each S rows × 3 MAP iterations of K1) and 2 + (S−1)·(nbDecodeIt + 1)
     decodes.  Returns (segments, state path)."""
+    with span("lia.seg.e_hmm"):
+        return _e_hmm(x, world, max_speakers, init_seg_frames, nb_decode_it,
+                      min_duration, frame_length, seed, map_reg, verbose)
+
+
+def _e_hmm(x, world, max_speakers, init_seg_frames, nb_decode_it,
+           min_duration, frame_length, seed, map_reg, verbose):
     dev = world.device
-    xt = _frames(x, dev)
+    xt = _host_frames(x, dev)
     n = xt.shape[0]
     s_max = max(max_speakers, 1)
     gen = _generator(seed, dev)
 
-    def full_log_trans(active: int) -> torch.Tensor:
+    def full_trans(active: int) -> np.ndarray:
         t = np.full((s_max, s_max), 1e-30)
         t[:active, :active] = compute_transitions(active)
-        return torch.log(torch.as_tensor(t, dtype=torch.float32, device=dev))
+        return t
 
-    def adapt(masks_np: np.ndarray) -> GmmDiag:
+    def adapt(build) -> GmmDiag:
         # map_reg is the reference's MAPRegFactor reaching segAdaptation
         # (Tools.cpp:1276); a seed of init_seg_frames frames over K
         # components moves its means only occ/(occ+r) per iteration, so
         # strong priors can starve new speakers of any Viterbi frames
-        return _batched_state_adapt(gen, xt,
-                                    torch.as_tensor(masks_np, device=dev),
-                                    world, map_reg=map_reg)
+        return _adapt_states(gen, xt, build, world, map_reg)
 
-    # state 0 trained on all frames (reference addSpeaker on L0 world)
-    masks = np.zeros((s_max, n), np.float32)
-    masks[0] = 1.0
-    bank = adapt(masks)
+    def first_masks() -> np.ndarray:
+        # state 0 trained on all frames (reference addSpeaker on L0 world)
+        masks = np.zeros((s_max, n), np.float32)
+        masks[0] = 1.0
+        return masks
+
+    bank = adapt(first_masks)
     active = 1
     names = ["S0"]
 
     def decode(bank, active):
-        em = _masked_emissions(xt, bank, np.arange(s_max) < active)
-        path = _viterbi(em, full_log_trans(active)).cpu().numpy()
-        return path, em.cpu().numpy()
+        return _decode(xt, bank, np.arange(s_max) < active,
+                       full_trans(active), with_emissions=True)
 
     path, em = decode(bank, active)
     for spk in range(1, max_speakers):
@@ -262,8 +327,12 @@ def e_hmm_segmentation(
                                     np.ones(init_seg_frames) / init_seg_frames,
                                     mode="valid")
         start = int(np.argmin(window_scores))
-        seed_masks = np.zeros((s_max, n), np.float32)
-        seed_masks[spk, start:start + init_seg_frames] = 1.0
+
+        def seed_masks(spk=spk, start=start) -> np.ndarray:
+            masks = np.zeros((s_max, n), np.float32)
+            masks[spk, start:start + init_seg_frames] = 1.0
+            return masks
+
         bank = _merge_state_rows(bank, adapt(seed_masks),
                                  np.arange(s_max) == spk)
         active = spk + 1
@@ -271,11 +340,11 @@ def e_hmm_segmentation(
         # iterative decode + batched re-adapt (reference nbDecodeIt loop)
         for _ in range(nb_decode_it):
             path, em = decode(bank, active)
-            masks = (path[None, :] == np.arange(s_max)[:, None]
-                     ).astype(np.float32)
-            counts = masks.sum(axis=1)
+            counts = np.bincount(path, minlength=s_max)
             # states with <10 assigned frames keep their previous model
-            bank = _merge_state_rows(bank, adapt(masks), counts >= 10)
+            bank = _merge_state_rows(
+                bank, adapt(lambda path=path: _path_masks(path, s_max)),
+                counts >= 10)
         # re-decode with the final adapted bank so the NEXT speaker's
         # worst-window seeding (and the loop-exit path) uses fresh
         # emissions — the reference re-decodes with the current HMM
@@ -303,31 +372,39 @@ def resegmentation(
     """Refinement pass (reference ReSegmentation.cpp:245-328): rebuild the
     HMM from an existing segmentation, MAP-adapt state models, Viterbi
     re-decode, drop speakers that lose all their frames.  Runs on
-    ``world``'s device."""
+    ``world``'s device.  With S the segments' labels it makes 1 + nb_it
+    batched adaptations of S rows and nb_it + 1 decodes."""
+    with span("lia.seg.reseg"):
+        return _reseg(x, segments, world, nb_it, min_duration,
+                      min_state_frames, frame_length, seed, map_reg)
+
+
+def _reseg(x, segments, world, nb_it, min_duration, min_state_frames,
+           frame_length, seed, map_reg):
     from ..io.labels import segments_to_frame_mask
     dev = world.device
-    xt = _frames(x, dev)
+    xt = _host_frames(x, dev)
     n = xt.shape[0]
     names = sorted({s.label for s in segments})
     s = len(names)
     gen = _generator(seed, dev)
-    masks = np.stack([
-        np.asarray(segments_to_frame_mask(
-            [sg for sg in segments if sg.label == nm], n, frame_length),
-            np.float32)
-        for nm in names])                                   # (S, N)
 
-    def adapt(masks_np: np.ndarray) -> GmmDiag:
-        return _batched_state_adapt(gen, xt,
-                                    torch.as_tensor(masks_np, device=dev),
-                                    world, map_reg=map_reg)
+    def label_masks() -> np.ndarray:
+        return np.stack([
+            np.asarray(segments_to_frame_mask(
+                [sg for sg in segments if sg.label == nm], n, frame_length),
+                np.float32)
+            for nm in names])                               # (S, N)
 
-    bank = adapt(masks)
+    def adapt(build) -> GmmDiag:
+        return _adapt_states(gen, xt, build, world, map_reg)
+
+    bank = adapt(label_masks)
     # fixed (S,)-shaped state bank + activity mask: dropped speakers get
     # −1e30 emissions instead of a shape change, as in the JAX package
     active = np.ones(s, bool)
 
-    def log_trans(act: np.ndarray) -> torch.Tensor:
+    def trans(act: np.ndarray) -> np.ndarray:
         """Transitions over the REMAINING states embedded in the fixed
         (s, s) matrix — the reference rebuilds the HMM over the surviving
         speakers after a drop (ReSegmentation.cpp:245-328), so the
@@ -336,18 +413,17 @@ def resegmentation(
         t = np.full((s, s), 1e-30)
         idx = np.nonzero(act)[0]
         t[np.ix_(idx, idx)] = compute_transitions(max(len(idx), 1))
-        return torch.log(torch.as_tensor(t, dtype=torch.float32, device=dev))
+        return t
 
     def decode() -> np.ndarray:
-        em = _masked_emissions(xt, bank, active)
-        return _viterbi(em, log_trans(active)).cpu().numpy()
+        return _decode(xt, bank, active, trans(active))[0]
 
     for _ in range(nb_it):
         path = decode()
-        masks = (path[None, :] == np.arange(s)[:, None]).astype(np.float32)
-        counts = masks.sum(axis=1)
+        counts = np.bincount(path, minlength=s)
         active &= counts >= min_state_frames   # drop irrelevant speakers
-        bank = adapt(masks * active[:, None].astype(np.float32))
+        bank = adapt(lambda path=path: _path_masks(
+            np.where(active[path], path, -1), s))
     path = decode()
     return path_to_segments(path, names, frame_length, min_duration), path
 

@@ -71,6 +71,15 @@ counters = {name: 0 for name in (
     "lia.tv.blocks",            # solve blocks of fa.tv.estimate_w
     "lia.tv.pcg_iters",         # PCG iterations run, summed over blocks
     "lia.tv.host_syncs",        # host reads of a device value in estimate_w
+    "lia.seg.decodes",          # decodes of seg.diarization's E-HMM and
+                                # ReSegmentation (emissions, then Viterbi)
+    "lia.seg.viterbi_frames",   # their frames, summed over decodes
+    "lia.seg.state_adapts",     # state rows MAP-adapted (one adapt_model each)
+    "lia.seg.empty_adapts",     # of those, rows adapted on an all-zero mask
+    "lia.seg.h2d_bytes",        # bytes they hand the device: host frames,
+                                # (S, N) masks, transitions and activity rows
+    "lia.seg.d2h_bytes",        # bytes they read back: each path and, in the
+                                # E-HMM, each (N, S) emission block
 )}
 _counter_lock = threading.Lock()    # the shards of a mesh run in threads
 _NO_SPAN = contextlib.nullcontext()
@@ -82,6 +91,12 @@ def span(name: str):
     if not _profiler._is_profiler_enabled:
         return _NO_SPAN
     return torch.profiler.record_function(name)
+
+
+def recording() -> bool:
+    """Whether a profiler records (spans and counters are on): a guard
+    for counts that cost work to compute."""
+    return _profiler._is_profiler_enabled
 
 
 def count(name: str, n: int = 1) -> None:
