@@ -139,7 +139,11 @@ printed as it ends; any failure raises and the exit code is non-zero:
             after ReSegmentation (``backend.eval.der``, collar 0 and 25
             frames) under ``DIAR_DER_LIMIT``, K1's and the Viterbi
             kernel's launches per tool against the counts the loops
-            imply, and a rerun of Segmentation equal to the digit.  Then
+            imply, and a rerun of Segmentation equal to the digit; K1's
+            grouped entry (the state adaptations' one launch a MAP
+            iteration) on the Segmentation's own state masks and their
+            adapted states, each row within the K1 budgets of the plain
+            version of its own frames, an empty row exact zeros.  Then
             the Viterbi kernel against the plain loop for exact equality
             of the path (N=30,000 S=5; N=1 S=1; inactive states; a
             60,000-frame decode; every instance S = 1, 2, 3, 5, 8, 9, 16,
@@ -1531,6 +1535,9 @@ DIAR_K_EVENT, DIAR_K_WORLD = tdiar.K_EVENT, tdiar.K_UBM
 DIAR_COLLAR = tdiar.TOL_FRAMES
 DIAR_STATE_FRAMES = 24000       # about the conversation's speech frames
 DIAR_MAX_SPEAKERS, DIAR_DECODE_IT, DIAR_RESEG_IT = 5, 3, 4
+# the launch-count keys of K1 on the diarization path: its entry (the
+# models TrainWorld trains) and its grouped entry (the state adaptations)
+K1_KEYS = ("em_stats_fused", "em_stats_fused_grouped")
 # DER limit (full timeline, collar 0): the CPU run of the same corpus
 # through the port, from the same numpy-made inits, gave 4.24 % after
 # Segmentation and 4.72 % after ReSegmentation.  The E-HMM seeds each new
@@ -1689,14 +1696,17 @@ def run_diarization(kernels, dev):
         generators differ."""
         tdiar.init_gmm(frames, k).save(os.path.join(d, name + ".gmm"))
 
+    def k1_launches():
+        # K1's entry and its grouped entry (the state adaptations)
+        return sum(ck.launch_counts[k] for k in K1_KEYS)
+
     def run(label, tool, args):
-        k1, vit = ck.launch_counts["em_stats_fused"], \
-            seg_hmm.launch_counts["viterbi"]
+        k1, vit = k1_launches(), seg_hmm.launch_counts["viterbi"]
         kms = {}
         walls[label], _ = run_tool(tool, common + args, kms, dev.type)
         k_ms[label] = (kms.get("em_stats_fused", 0.0),
                        kms.get("viterbi_cuda", 0.0))
-        launches[label] = (ck.launch_counts["em_stats_fused"] - k1,
+        launches[label] = (k1_launches() - k1,
                            seg_hmm.launch_counts["viterbi"] - vit)
 
     ck.reset_launch_counts()
@@ -1741,10 +1751,10 @@ def run_diarization(kernels, dev):
          "--MAPRegFactorMean", "3.0", "--nbTrainIt", str(DIAR_RESEG_IT),
          "--loadLabelFileExtension", ".seg.lbl",
          "--saveLabelFileExtension", ".reseg.lbl"])
-    main_k1 = ck.launch_counts["em_stats_fused"]
+    main_k1 = {k: ck.launch_counts[k] for k in K1_KEYS}
     main_vit = seg_hmm.launch_counts["viterbi"]
     other = {k: v for k, v in ck.launch_counts.items()
-             if k != "em_stats_fused" and v}
+             if k not in K1_KEYS and v}
     check(not other, f"only the default K1 on the diarization path {other}")
 
     print("  diar: tool wall s " + ", ".join(
@@ -1780,24 +1790,23 @@ def run_diarization(kernels, dev):
         check(a <= DIAR_DER_LIMIT, f"{label} DER {a:.4f} within "
               f"{DIAR_DER_LIMIT}")
     # launches the loops imply: TrainWorld nbTrainIt each; the E-HMM
-    # 1 + (S-1)(1 + nbDecodeIt) adaptations of S rows x 3 MAP iterations
-    # and 2 + (S-1)(nbDecodeIt + 1) decodes; ReSegmentation 1 + nbTrainIt
-    # adaptations of (speakers in its input) rows x 3 and nbTrainIt + 1
-    # decodes
+    # 1 + (S-1)(1 + nbDecodeIt) adaptations x 3 MAP iterations (one grouped
+    # K1 launch each, over all S rows) and 2 + (S-1)(nbDecodeIt + 1)
+    # decodes; ReSegmentation 1 + nbTrainIt adaptations x 3 and nbTrainIt
+    # + 1 decodes
     s_max = DIAR_MAX_SPEAKERS
     want = {f"TrainWorld[{ev}]": (4, 0)
             for ev in ("speech", "silence", "music", "world")}
     want.update({
         "AcousticSegmentation": (0, 1), "TurnDetection": (0, 0),
-        "Segmentation": ((1 + (s_max - 1) * (1 + DIAR_DECODE_IT)) * s_max * 3,
+        "Segmentation": ((1 + (s_max - 1) * (1 + DIAR_DECODE_IT)) * 3,
                          2 + (s_max - 1) * (DIAR_DECODE_IT + 1)),
-        "ReSegmentation": ((1 + DIAR_RESEG_IT) * n_seg_spk * 3,
-                           DIAR_RESEG_IT + 1)})
+        "ReSegmentation": ((1 + DIAR_RESEG_IT) * 3, DIAR_RESEG_IT + 1)})
     for label, counts in want.items():
         check(launches[label] == counts, f"{label}: (K1, Viterbi) launches "
               f"{launches[label]}, expected {counts}")
     # a rerun of Segmentation reproduces every digit of the labels
-    before = (ck.launch_counts["em_stats_fused"],
+    before = ({k: ck.launch_counts[k] for k in K1_KEYS},
               seg_hmm.launch_counts["viterbi"])
     run("Segmentation[rerun]", "Segmentation",
         seg_args + ["--saveLabelFileExtension", ".seg2.lbl"])
@@ -1807,7 +1816,8 @@ def run_diarization(kernels, dev):
               "label file")
     # an all-zero state row on the card comes back as the world
     world = GmmDiag.load(os.path.join(d, "wld.gmm"), device=dev)
-    from lia_ral_tpu_torch.seg.diarization import _batched_state_adapt
+    from lia_ral_tpu_torch.seg.diarization import (_batched_state_adapt,
+                                                   _gather_rows)
     xs = torch.from_numpy(x[sp_idx]).to(dev)
     masks = torch.zeros((2, xs.shape[0]), device=dev)
     masks[0, :3000] = 1.0
@@ -1817,30 +1827,60 @@ def run_diarization(kernels, dev):
               for t in (bank.weights, bank.means, bank.cov_inv))
           and torch.equal(bank.means[1], world.means),
           "an all-zero mask row comes back as the world, finite")
-    # K1 on the path's own frames, model and state masks
-    for label, row in (("3000-frame state", masks[0]), ("empty state",
-                                                        masks[1])):
-        got = ck.em_stats_fused(xs, row, world)
-        want = ck.em_stats_reference(xs, row, world)
-        err = check_stats(f"K1 em_stats_fused, world K={DIAR_K_WORLD}, "
-                          f"{xs.shape[0]} speech frames, {label}",
-                          [("n", got.n, want.n, n_rtol("")),
-                           ("sum_x", got.sum_x, want.sum_x, sum_rtol("")),
-                           ("sum_xx", got.sum_xx, want.sum_xx, sum_rtol(""))],
-                          (got.llk[None], want.llk[None]))
-        kernels["em_stats_fused"]["max_abs_err"] = max(
-            kernels["em_stats_fused"]["max_abs_err"], err)
+    # K1's grouped entry on the path's own frames: Segmentation's state
+    # masks (rows past its speakers empty) and their adapted states, and
+    # the two rows above; each row against the plain version of its own
+    # frames, an empty row exact zeros
+    lab = torch.from_numpy(tdiar.segs_to_frames(segs, len(sp_idx))).to(dev)
+    seg_masks = (lab[None] == torch.arange(DIAR_MAX_SPEAKERS, device=dev)
+                 [:, None]).float()
+    seg_bank = _batched_state_adapt(torch.Generator(device=dev), xs,
+                                    seg_masks, world, map_reg=3.0)
+    grouped = {"name": "em_stats_fused_grouped", "route": "cuda",
+               "source": SOURCE,
+               "replaces": REPLACES["em_stats_fused"] + " (once a state)",
+               "max_abs_err": 0.0}
+    for label, mk, bk in (("Segmentation's states", seg_masks, seg_bank),
+                          ("a 3000-frame and an empty state", masks, bank)):
+        xc, wc, g = _gather_rows(xs, mk, DIAR_K_WORLD)
+        got = ck.em_stats_fused(xc, wc, bk, groups=g)
+        for r, (a, c) in enumerate(zip(g.starts, g.counts)):
+            if c == 0:
+                check(all(bool((getattr(got, f)[r] == 0).all())
+                          for f in ("n", "sum_x", "sum_xx", "llk", "count")),
+                      f"grouped K1, {label}: row {r} has no frame and "
+                      "exact zeros")
+                continue
+            want = ck.em_stats_reference(
+                xc[a:a + c], wc[a:a + c],
+                GmmDiag(bk.weights[r], bk.means[r], bk.cov_inv[r]))
+            err = check_stats(
+                f"K1 em_stats_fused grouped, world K={DIAR_K_WORLD}, "
+                f"{label}, row {r} of {len(g.counts)} ({c} frames)",
+                [("n", got.n[r], want.n, n_rtol("")),
+                 ("sum_x", got.sum_x[r], want.sum_x, sum_rtol("")),
+                 ("sum_xx", got.sum_xx[r], want.sum_xx, sum_rtol(""))],
+                (got.llk[r][None], want.llk[None]))
+            check(float(got.count[r]) == float(want.count),
+                  f"grouped K1, {label}: row {r} frame count")
+            grouped["max_abs_err"] = max(grouped["max_abs_err"], err)
     entry_v = check_viterbi(dev)
-    check_k1 = ck.launch_counts["em_stats_fused"] - before[0]
-    check_vit = seg_hmm.launch_counts["viterbi"] - before[1]
+    paths = ("cli-ivector", "gmm-ubm", "backend", "jfa")
+    grouped["launches"] = 0
+    grouped["launches_by_path"] = {p: 0 for p in paths}
+    grouped["check_launches"] = 0
+    grouped["library_ms"] = None
+    kernels["em_stats_fused_grouped"] = grouped
     for kname, kv in kernels.items():
-        got = main_k1 if kname == "em_stats_fused" else 0
+        got = main_k1.get(kname, 0)
         kv["launches_by_path"]["diarization"] = got
         kv["launches"] += got
-    kernels["em_stats_fused"]["check_launches"] += check_k1
+    for kname in K1_KEYS:
+        kernels[kname]["check_launches"] += (ck.launch_counts[kname]
+                                             - before[0][kname])
+    check_vit = seg_hmm.launch_counts["viterbi"] - before[1]
     entry_v.update(launches=main_vit, check_launches=check_vit,
-                   launches_by_path={"cli-ivector": 0, "gmm-ubm": 0,
-                                     "backend": 0, "jfa": 0,
+                   launches_by_path={**{p: 0 for p in paths},
                                      "diarization": main_vit})
     kernels["viterbi"] = entry_v
     return d, len(sp_idx)

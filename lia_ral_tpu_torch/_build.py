@@ -122,6 +122,13 @@ def _bind(name: str, lib) -> None:
         lib.lia_bw_stats_wgmma.argtypes = [p, p, p, p, p, i, i, i, i,
                                            *mode, p, p, p]
         lib.lia_bw_stats_wgmma.restype = i
+        # the grouped K1: frames, weights, the bank; n_frames, D, K, S,
+        # chunk_len, n_chunks; table, scratch, out, stream
+        lib.lia_stats_grouped_scratch_bytes.argtypes = [ll, i, i, i, i, i]
+        lib.lia_stats_grouped_scratch_bytes.restype = ll
+        lib.lia_em_stats_grouped_wgmma.argtypes = [p, p, p, p, p, ll, i, i,
+                                                   i, i, i, p, p, p, p]
+        lib.lia_em_stats_grouped_wgmma.restype = i
     elif name == "viterbi":
         lib.lia_viterbi.argtypes = [p, p, ll, i, f, p, p, p, p]
         lib.lia_viterbi.restype = i

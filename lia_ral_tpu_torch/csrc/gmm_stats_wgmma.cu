@@ -121,6 +121,15 @@
 // block); K1 writes per-chunk partials that reduce_chunks_kernel adds in
 // chunk order (a single chunk writes the output directly).  Every sum has
 // a fixed order, so reruns reproduce every digit.
+// Grouped K1 (lia_em_stats_grouped_wgmma, the default tier only): S GMMs,
+// each with its own frames, in one launch of each pass.  The rows' frames
+// lie one after another, each row from a multiple of GROUP_UNIT frames, and
+// a table maps each chunk of the stats grid and each GROUP_UNIT of frames
+// to its row.  prep writes the S models' B; the llk, tiles and stats
+// passes are the kernels above, each block reading its row's B; a per-row
+// reduce adds each row's chunk partials in chunk order.  The grouped
+// kernels share the device code above and are instances of their own, so
+// the two entries above compile as they did.
 // A frame with zero weight (or beyond the ragged edge) gets m = +inf and
 // s = 0, so p = 0 (2^-120 in fast2, as _fast_exp2 clamps) and xs = 0: it
 // adds exactly 0 to every statistic.
@@ -149,6 +158,9 @@ constexpr int NT = 256;             // two warpgroups
 constexpr int KT = 64;              // components per wgmma tile (its M)
 constexpr int SMEM_MAX = 232448;    // dynamic shared memory a block may use
 constexpr float PAD_LOGIT = -1e30f;
+// the grouped entry's rows start on multiples of this many frames
+// (cuda_kernels.GROUP_UNIT): a multiple of every llk block's 2 TF
+constexpr int GROUP_UNIT = 256;
 constexpr float LOG2E_F = 1.4426950408889634f;
 constexpr double LOG2E_D = 1.4426950408889634;
 constexpr float LN2_F = 0.6931471805599453f;
@@ -256,13 +268,14 @@ __device__ __forceinline__ uint32_t sr_bf16(float v, uint32_t bits) {
 // 64 x WP operand sits at core matrix (c/8, r/8) (row groups fastest) of 64
 // elements, row r%8, column c%8: LBO = 8 * 128 bytes, SBO = 128 bytes.
 // fold: cst on the constant-1 row (three logit passes), else in cstv.
-__global__ void prep_kernel(const float* __restrict__ weights,
-                            const float* __restrict__ means,
-                            const float* __restrict__ cov_inv, int K, int D,
-                            int WP, int la, int fold, int base2,
-                            bf16* __restrict__ bprep,
-                            float* __restrict__ cstv) {
-    const int tile = blockIdx.x;
+// One block writes one 64-component tile.
+__device__ __forceinline__ void prep_tile(const float* __restrict__ weights,
+                                          const float* __restrict__ means,
+                                          const float* __restrict__ cov_inv,
+                                          int K, int D, int WP, int la,
+                                          int fold, int base2, int tile,
+                                          bf16* __restrict__ bprep,
+                                          float* __restrict__ cstv) {
     __shared__ float s_cst[KT];
     if (threadIdx.x < KT) {
         const int k = tile * KT + threadIdx.x;
@@ -307,6 +320,31 @@ __global__ void prep_kernel(const float* __restrict__ weights,
             v -= __bfloat162float(h);
         }
     }
+}
+
+__global__ void prep_kernel(const float* __restrict__ weights,
+                            const float* __restrict__ means,
+                            const float* __restrict__ cov_inv, int K, int D,
+                            int WP, int la, int fold, int base2,
+                            bf16* __restrict__ bprep,
+                            float* __restrict__ cstv) {
+    prep_tile(weights, means, cov_inv, K, D, WP, la, fold, base2, blockIdx.x,
+              bprep, cstv);
+}
+
+// The grouped call's S models (weights (S, K), means and cov_inv (S, K, D)):
+// block (tile, model) writes that model's tile; model r's B at bprep + r *
+// Kpad * WP * la, its vector at cstv + r * Kpad.
+__global__ void prep_grouped_kernel(const float* __restrict__ weights,
+                                    const float* __restrict__ means,
+                                    const float* __restrict__ cov_inv, int K,
+                                    int D, int WP, int la, int fold,
+                                    int base2, bf16* __restrict__ bprep,
+                                    float* __restrict__ cstv) {
+    const long long r = blockIdx.y, kpad = (long long)gridDim.x * KT;
+    prep_tile(weights + r * K, means + r * K * D, cov_inv + r * K * D, K, D,
+              WP, la, fold, base2, blockIdx.x, bprep + r * kpad * WP * la,
+              cstv + r * kpad);
 }
 
 // ---- frame tiles ----------------------------------------------------------
@@ -550,12 +588,18 @@ struct Geo {
     unsigned long long seed;
 };
 
+// The pass for one block: frames [f0, f0 + 2 TF), none at or past f_end,
+// against the B tiles at bprep and the vector at cstv.
 template <int TF, int EM>
-__global__ void __launch_bounds__(NT, 1)
-llk_kernel(const float* __restrict__ x, const float* __restrict__ w,
-           const bf16* __restrict__ bprep, const float* __restrict__ cstv,
-           const Geo G, float* __restrict__ llk, float* __restrict__ m_out,
-           float* __restrict__ s_out) {
+__device__ __forceinline__ void llk_body(const float* __restrict__ x,
+                                         const float* __restrict__ w,
+                                         const bf16* __restrict__ bprep,
+                                         const float* __restrict__ cstv,
+                                         const Geo& G, long long f0,
+                                         long long f_end,
+                                         float* __restrict__ llk,
+                                         float* __restrict__ m_out,
+                                         float* __restrict__ s_out) {
     extern __shared__ uint4 smem_raw[];
     char* sm = reinterpret_cast<char*>(smem_raw);
     const int WP = G.WP, la = G.la, nb = G.nb_llk, n_ktiles = G.n_ktiles;
@@ -565,11 +609,10 @@ llk_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int op = la * TF * WP;                // elements of one xa set
     bf16* sXA = reinterpret_cast<bf16*>(sm + L.xa);
     float* sX = reinterpret_cast<float*>(sm + L.b);
-    const long long f0 = (long long)blockIdx.x * (2 * TF);
 
     for (int h = 0; h < 2; ++h) {               // xa of both warpgroups
         __syncthreads();
-        issue_x_tile(x, f0 + h * TF, G.n_frames, TF, G.D, sX);
+        issue_x_tile(x, f0 + h * TF, f_end, TF, G.D, sX);
         cp_async_commit();
         cp_async_wait<0>();
         __syncthreads();
@@ -660,7 +703,7 @@ llk_kernel(const float* __restrict__ x, const float* __restrict__ w,
     if (tid < 2 * TF) {
         const int h = tid / TF, col = tid % TF;
         const long long f = f0 + tid;
-        if (f < G.n_frames) {
+        if (f < f_end) {
             const float* pm = reinterpret_cast<float*>(sm + L.pm) + h * 4 * TF;
             const float* ps = reinterpret_cast<float*>(sm + L.ps) + h * 4 * TF;
             float M = pm[col], S = ps[col];
@@ -675,6 +718,33 @@ llk_kernel(const float* __restrict__ x, const float* __restrict__ w,
     }
 }
 
+template <int TF, int EM>
+__global__ void __launch_bounds__(NT, 1)
+llk_kernel(const float* __restrict__ x, const float* __restrict__ w,
+           const bf16* __restrict__ bprep, const float* __restrict__ cstv,
+           const Geo G, float* __restrict__ llk, float* __restrict__ m_out,
+           float* __restrict__ s_out) {
+    llk_body<TF, EM>(x, w, bprep, cstv, G, (long long)blockIdx.x * (2 * TF),
+                     G.n_frames, llk, m_out, s_out);
+}
+
+// The grouped call (rows padded to GROUP_UNIT frames, so a block's frames
+// are one row's): the block's row, unit_row[f0 / GROUP_UNIT], picks the
+// model whose prepared B and vector it reads.
+template <int TF>
+__global__ void __launch_bounds__(NT, 1)
+llk_grouped_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   const bf16* __restrict__ bprep,
+                   const float* __restrict__ cstv, const Geo G,
+                   const int* __restrict__ unit_row, float* __restrict__ llk,
+                   float* __restrict__ m_out, float* __restrict__ s_out) {
+    const long long f0 = (long long)blockIdx.x * (2 * TF);
+    const long long r = unit_row[f0 / GROUP_UNIT];
+    llk_body<TF, EM_EXP2>(x, w, bprep + r * G.n_ktiles * G.la * KT * G.WP,
+                          cstv + r * G.n_ktiles * KT, G, f0, G.n_frames, llk,
+                          m_out, s_out);
+}
+
 // ---- the operand tiles of the stats pass ----------------------------------
 // Tile (chunk c, i) covers frames [c*chunk_len + i*TF, ... + TF) of chunk c
 // (cut at the chunk's end).  Its operands, in the order the stats pass's
@@ -685,20 +755,17 @@ __host__ __device__ constexpr int tile_elems(int WP, int la, int ls) {
     return la * TF * WP + ls * NS * TF;
 }
 
-// Builds every tile once (the stats grid reads each one from every
-// component block).  Block c * tiles_per_chunk + i builds tile (c, i).
+// The tile of frames [t0, t0 + TF) of a chunk that ends at f1 (nothing
+// where t0 >= f1).
 template <int NS, int TF>
-__global__ void __launch_bounds__(NT)
-tiles_kernel(const float* __restrict__ x, const float* __restrict__ s_in,
-             const Geo G, bf16* __restrict__ tiles) {
+__device__ __forceinline__ void tiles_body(const float* __restrict__ x,
+                                           const float* __restrict__ s_in,
+                                           const Geo& G, long long t0,
+                                           long long f1,
+                                           bf16* __restrict__ tiles) {
     extern __shared__ uint4 smem_raw[];
     float* sX = reinterpret_cast<float*>(smem_raw);
     float* sS = sX + round_up(TF * G.D, 4);
-    const long long f0 =
-        (long long)(blockIdx.x / G.tiles_per_chunk) * G.chunk_len;
-    const long long f1 = min(f0 + G.chunk_len, G.n_frames);
-    const long long t0 =
-        f0 + (long long)(blockIdx.x % G.tiles_per_chunk) * TF;
     if (t0 >= f1) return;
     issue_x_tile(x, t0, f1, TF, G.D, sX);
     cp_async_commit();
@@ -711,6 +778,33 @@ tiles_kernel(const float* __restrict__ x, const float* __restrict__ s_in,
     build_xa<TF>(sX, G.D, G.WP, G.la, dst);
     build_xs<NS, TF>(sX, sS, G.D, G.ls, G.sr, G.seed, t0,
                      dst + G.la * TF * G.WP);
+}
+
+// Builds every tile once (the stats grid reads each one from every
+// component block).  Block c * tiles_per_chunk + i builds tile (c, i).
+template <int NS, int TF>
+__global__ void __launch_bounds__(NT)
+tiles_kernel(const float* __restrict__ x, const float* __restrict__ s_in,
+             const Geo G, bf16* __restrict__ tiles) {
+    const long long f0 =
+        (long long)(blockIdx.x / G.tiles_per_chunk) * G.chunk_len;
+    const long long f1 = min(f0 + G.chunk_len, G.n_frames);
+    const long long t0 =
+        f0 + (long long)(blockIdx.x % G.tiles_per_chunk) * TF;
+    tiles_body<NS, TF>(x, s_in, G, t0, f1, tiles);
+}
+
+// The grouped call: chunk c covers [chunk_start[c], chunk_start[c + 1]).
+template <int NS, int TF>
+__global__ void __launch_bounds__(NT)
+tiles_grouped_kernel(const float* __restrict__ x,
+                     const float* __restrict__ s_in, const Geo G,
+                     const int* __restrict__ chunk_start,
+                     bf16* __restrict__ tiles) {
+    const int c = blockIdx.x / G.tiles_per_chunk;
+    const long long t0 = chunk_start[c]
+        + (long long)(blockIdx.x % G.tiles_per_chunk) * TF;
+    tiles_body<NS, TF>(x, s_in, G, t0, chunk_start[c + 1], tiles);
 }
 
 // ---- pass 2: the statistics -----------------------------------------------
@@ -746,14 +840,16 @@ __device__ __forceinline__ void stat_pass(float (&acc)[NS / 2],
 // fastest, so that the blocks of a chunk read its tiles together) writes
 // rows [128 j, 128 j + 128) of chunk c (warpgroup h the rows 128 j + 64 h
 // ...); the blocks with j == 0 also write row K.  PF: the p pieces in
-// registers (1, 2, 3, or PF_SR: one, rounded stochastically).
+// registers (1, 2, 3, or PF_SR: one, rounded stochastically).  The body
+// of one block: chunk ``chunk`` holds frames [f0, f1), scored against the
+// B tiles at bprep and the vector at cstv.
 template <int NS, int TF, int EM, int PF>
-__global__ void __launch_bounds__(NT, 1)
-stats_kernel(const float* __restrict__ w, const float* __restrict__ llk,
-             const float* __restrict__ m_in, const float* __restrict__ s_in,
-             const bf16* __restrict__ bprep, const float* __restrict__ cstv,
-             const bf16* __restrict__ tiles, const Geo G,
-             float* __restrict__ out) {
+__device__ __forceinline__ void stats_body(
+    const float* __restrict__ w, const float* __restrict__ llk,
+    const float* __restrict__ m_in, const float* __restrict__ s_in,
+    const bf16* __restrict__ bprep, const float* __restrict__ cstv,
+    const bf16* __restrict__ tiles, const Geo& G, int chunk, long long f0,
+    long long f1, float* __restrict__ out) {
     constexpr int NP = PF == PF_SR ? 1 : PF;
     extern __shared__ uint4 smem_raw[];
     char* sm = reinterpret_cast<char*>(smem_raw);
@@ -762,10 +858,7 @@ stats_kernel(const float* __restrict__ w, const float* __restrict__ llk,
     const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32;
     const int lane = tid % 32, g = lane / 4, c = lane % 4;
     const int A = 2 * D + 2;
-    const int chunk = blockIdx.x / G.k_blocks;
     const int kblock = blockIdx.x % G.k_blocks;
-    const long long f0 = (long long)chunk * G.chunk_len;
-    const long long f1 = min(f0 + G.chunk_len, G.n_frames);
     const int ktile = kblock * 2 + wg;
     const bool has_tile = ktile < G.n_ktiles;    // uniform in the warpgroup
     const bool turns = kblock * 2 + 1 < G.n_ktiles;  // both have a tile
@@ -974,6 +1067,43 @@ stats_kernel(const float* __restrict__ w, const float* __restrict__ llk,
     }
 }
 
+template <int NS, int TF, int EM, int PF>
+__global__ void __launch_bounds__(NT, 1)
+stats_kernel(const float* __restrict__ w, const float* __restrict__ llk,
+             const float* __restrict__ m_in, const float* __restrict__ s_in,
+             const bf16* __restrict__ bprep, const float* __restrict__ cstv,
+             const bf16* __restrict__ tiles, const Geo G,
+             float* __restrict__ out) {
+    const int chunk = blockIdx.x / G.k_blocks;
+    const long long f0 = (long long)chunk * G.chunk_len;
+    stats_body<NS, TF, EM, PF>(w, llk, m_in, s_in, bprep, cstv, tiles, G,
+                               chunk, f0, min(f0 + G.chunk_len, G.n_frames),
+                               out);
+}
+
+// The grouped call in the default arithmetic: chunk c covers
+// [chunk_start[c], chunk_start[c + 1]) of row chunk_row[c], scored with
+// that row's model; out holds one partial a chunk.
+template <int NS, int TF>
+__global__ void __launch_bounds__(NT, 1)
+stats_grouped_kernel(const float* __restrict__ w,
+                     const float* __restrict__ llk,
+                     const float* __restrict__ m_in,
+                     const float* __restrict__ s_in,
+                     const bf16* __restrict__ bprep,
+                     const float* __restrict__ cstv,
+                     const bf16* __restrict__ tiles, const Geo G,
+                     const int* __restrict__ chunk_start,
+                     const int* __restrict__ chunk_row,
+                     float* __restrict__ out) {
+    const int chunk = blockIdx.x / G.k_blocks;
+    const long long r = chunk_row[chunk];
+    stats_body<NS, TF, EM_EXP2, 2>(
+        w, llk, m_in, s_in, bprep + r * G.n_ktiles * G.la * KT * G.WP,
+        cstv + r * G.n_ktiles * KT, tiles, G, chunk, chunk_start[chunk],
+        chunk_start[chunk + 1], out);
+}
+
 // out[j] = sum_c partials[c, j], c = 0 .. n_chunks-1 in order.
 __global__ void reduce_chunks_kernel(const float* __restrict__ partials,
                                      int n_chunks, long long m,
@@ -983,6 +1113,20 @@ __global__ void reduce_chunks_kernel(const float* __restrict__ partials,
     float s = 0.f;
     for (int c = 0; c < n_chunks; ++c) s += partials[(long long)c * m + j];
     out[j] = s;
+}
+
+// out[r, j] = sum_c partials[c, j] over the chunks c of row r,
+// row_chunks[r] .. row_chunks[r + 1] - 1 in order; 0 for a row with none.
+__global__ void reduce_rows_kernel(const float* __restrict__ partials,
+                                   const int* __restrict__ row_chunks,
+                                   long long m, float* __restrict__ out) {
+    const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= m) return;
+    const int r = blockIdx.y;
+    float s = 0.f;
+    for (int c = row_chunks[r]; c < row_chunks[r + 1]; ++c)
+        s += partials[(long long)c * m + j];
+    out[(long long)r * m + j] = s;
 }
 
 // ---- host side ------------------------------------------------------------
@@ -1028,16 +1172,18 @@ struct ModeArgs {
 struct Scratch {                    // byte offsets into the one scratch buffer
     long long bprep, cstv, llk, m, s, tiles, partials, total;
     int tiles_per_chunk;
+    // models: the GMMs whose B is prepared (the grouped entry's S)
     Scratch(long long n_frames, int D, int K, int chunk_len, int n_chunks,
-            bool with_partials, const ModeArgs& md) {
+            bool with_partials, const ModeArgs& md, int models = 1) {
         const Shape sh(D);
         const int Kpad = round_up(K, KT);
         tiles_per_chunk = (chunk_len + sh.TF - 1) / sh.TF;
         const long long te =
             (long long)md.la * sh.TF * sh.WP + (long long)md.ls * sh.NS * sh.TF;
         bprep = 0;
-        cstv = bprep + align256((long long)Kpad * sh.WP * md.la * 2);
-        llk = cstv + align256((long long)Kpad * 4);
+        cstv = bprep
+               + align256((long long)models * Kpad * sh.WP * md.la * 2);
+        llk = cstv + align256((long long)models * Kpad * 4);
         m = llk + align256(n_frames * 4);
         s = m + align256(n_frames * 4);
         tiles = s + align256(n_frames * 4);
@@ -1125,6 +1271,29 @@ cudaError_t launch_stats(const float* x, const float* w, const float* llk,
 #undef LIA_STATS
 }
 
+// The shape and mode of a call as the kernels take them.
+Geo geo_of(long long n_frames, int chunk_len, const Scratch& sc, int K, int D,
+           const ModeArgs& md, unsigned long long seed) {
+    Geo G;
+    G.n_frames = n_frames;
+    G.chunk_len = chunk_len;
+    G.tiles_per_chunk = sc.tiles_per_chunk;
+    G.K = K;
+    G.n_ktiles = (K + KT - 1) / KT;
+    G.k_blocks = (G.n_ktiles + 1) / 2;
+    G.D = D;
+    G.WP = Shape(D).WP;
+    G.la = md.la;
+    G.ls = md.ls;
+    G.passes = md.passes;
+    G.x2 = md.x2;
+    G.nx = md.nx;
+    G.sr = md.form == SF_SR;
+    G.nb_llk = G.nb_stats = 2;
+    G.seed = seed;
+    return G;
+}
+
 // prep, llk pass, tiles and stats pass.  out: (n_chunks, K+1, A).
 cudaError_t run(const float* x, const float* w, const float* weights,
                 const float* means, const float* cov_inv, long long n_frames,
@@ -1135,23 +1304,7 @@ cudaError_t run(const float* x, const float* w, const float* weights,
         || !md.valid)
         return cudaErrorInvalidValue;
     const Shape sh(D);
-    Geo G;
-    G.n_frames = n_frames;
-    G.chunk_len = chunk_len;
-    G.tiles_per_chunk = sc.tiles_per_chunk;
-    G.K = K;
-    G.n_ktiles = (K + KT - 1) / KT;
-    G.k_blocks = (G.n_ktiles + 1) / 2;
-    G.D = D;
-    G.WP = sh.WP;
-    G.la = md.la;
-    G.ls = md.ls;
-    G.passes = md.passes;
-    G.x2 = md.x2;
-    G.nx = md.nx;
-    G.sr = md.form == SF_SR;
-    G.nb_llk = G.nb_stats = 2;
-    G.seed = seed;
+    const Geo G = geo_of(n_frames, chunk_len, sc, K, D, md, seed);
     bf16* bprep = reinterpret_cast<bf16*>(scratch + sc.bprep);
     float* cstv = reinterpret_cast<float*>(scratch + sc.cstv);
     float* llk = reinterpret_cast<float*>(scratch + sc.llk);
@@ -1191,6 +1344,53 @@ cudaError_t run(const float* x, const float* w, const float* weights,
                                      n_chunks, md, out, st);
     return launch_stats<144, 64>(x, w, llk, m, s, bprep, cstv, tiles, G,
                                  n_chunks, md, out, st);
+}
+
+// The grouped entry's arithmetic: the default tier, (3, exp2, "3").
+ModeArgs grouped_mode() { return ModeArgs(3, EM_EXP2, SF_3, 0); }
+
+template <int NS, int TF>
+cudaError_t launch_grouped(const float* x, const float* w, float* llk,
+                           float* m, float* s, const bf16* bprep,
+                           const float* cstv, bf16* tiles, Geo G,
+                           int n_chunks, const int* chunk_start,
+                           const int* chunk_row, const int* unit_row,
+                           float* partials, cudaStream_t st) {
+    G.nb_llk = LlkSmem<TF>(G.WP, G.la, 2).total <= SMEM_MAX ? 2 : 1;
+    const LlkSmem<TF> L(G.WP, G.la, G.nb_llk);
+    G.nb_stats =
+        StatsSmem<NS, TF>(G.WP, G.la, G.ls, 2).total <= SMEM_MAX ? 2 : 1;
+    const StatsSmem<NS, TF> LS(G.WP, G.la, G.ls, G.nb_stats);
+    if (L.total > SMEM_MAX || LS.total > SMEM_MAX)
+        return cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(
+        llk_grouped_kernel<TF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L.total);
+    if (e != cudaSuccess) return e;
+    llk_grouped_kernel<TF>
+        <<<(unsigned)(G.n_frames / (2 * TF)), NT, L.total, st>>>(
+            x, w, bprep, cstv, G, unit_row, llk, m, s);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    const int tiles_smem = (round_up(TF * G.D, 4) + TF) * 4;
+    e = cudaFuncSetAttribute(tiles_grouped_kernel<NS, TF>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             tiles_smem);
+    if (e != cudaSuccess) return e;
+    tiles_grouped_kernel<NS, TF>
+        <<<(unsigned)((long long)n_chunks * G.tiles_per_chunk), NT,
+           tiles_smem, st>>>(x, s, G, chunk_start, tiles);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(stats_grouped_kernel<NS, TF>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             LS.total);
+    if (e != cudaSuccess) return e;
+    stats_grouped_kernel<NS, TF>
+        <<<(unsigned)((long long)n_chunks * G.k_blocks), NT, LS.total, st>>>(
+            w, llk, m, s, bprep, cstv, tiles, G, chunk_start, chunk_row,
+            partials);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -1260,6 +1460,77 @@ int lia_bw_stats_wgmma(const void* x, const void* w, const void* weights,
                     (const float*)means, (const float*)cov_inv, n, T, S, K, D,
                     md, seed, (char*)scratch, sc, (float*)out,
                     (cudaStream_t)stream);
+}
+
+// The grouped K1: S rows, each a GMM and its own frames.  x (n_frames, D)
+// and w (n_frames,) hold the rows one after another, row r from a multiple
+// of GROUP_UNIT frames (padded with weight 0 to the next row), so n_frames
+// too is a multiple of it.  The S models: weights (S, K), means and cov_inv
+// (S, K, D).  The default tier's arithmetic only.  table (int32):
+// chunk_start (n_chunks + 1: chunk c covers [chunk_start[c],
+// chunk_start[c + 1]), at most chunk_len frames, a multiple of GROUP_UNIT
+// long but the last of its row), chunk_row (n_chunks), row_chunks (S + 1:
+// row r's chunks are row_chunks[r] .. row_chunks[r + 1] - 1), unit_row
+// (n_frames / GROUP_UNIT: the row of each unit).  out: (S, K+1, A), each
+// row's chunk partials added in chunk order, zeros for a row with none.
+long long lia_stats_grouped_scratch_bytes(long long n_frames, int D, int K,
+                                          int S, int chunk_len,
+                                          int n_chunks) {
+    return Scratch(n_frames, D, K, chunk_len, n_chunks, true, grouped_mode(),
+                   S).total;
+}
+
+int lia_em_stats_grouped_wgmma(const void* x, const void* w,
+                               const void* weights, const void* means,
+                               const void* cov_inv, long long n_frames, int D,
+                               int K, int S, int chunk_len, int n_chunks,
+                               const void* table, void* scratch, void* out,
+                               void* stream) {
+    if (n_frames <= 0 || n_frames % GROUP_UNIT || chunk_len <= 0
+        || chunk_len % GROUP_UNIT || n_chunks <= 0 || S <= 0 || K <= 0
+        || D <= 0 || D > 64)
+        return (int)cudaErrorInvalidValue;
+    const ModeArgs md = grouped_mode();
+    const Scratch sc(n_frames, D, K, chunk_len, n_chunks, true, md, S);
+    const Shape sh(D);
+    const Geo G = geo_of(n_frames, chunk_len, sc, K, D, md, 0);
+    char* sp = (char*)scratch;
+    bf16* bprep = reinterpret_cast<bf16*>(sp + sc.bprep);
+    float* cstv = reinterpret_cast<float*>(sp + sc.cstv);
+    float* llk = reinterpret_cast<float*>(sp + sc.llk);
+    float* m = reinterpret_cast<float*>(sp + sc.m);
+    float* s = reinterpret_cast<float*>(sp + sc.s);
+    bf16* tiles = reinterpret_cast<bf16*>(sp + sc.tiles);
+    float* partials = reinterpret_cast<float*>(sp + sc.partials);
+    const int* chunk_start = (const int*)table;
+    const int* chunk_row = chunk_start + n_chunks + 1;
+    const int* row_chunks = chunk_row + n_chunks;
+    const int* unit_row = row_chunks + S + 1;
+    cudaStream_t st = (cudaStream_t)stream;
+    prep_grouped_kernel<<<dim3(G.n_ktiles, S), 256, 0, st>>>(
+        (const float*)weights, (const float*)means, (const float*)cov_inv, K,
+        D, G.WP, md.la, md.fold, 1, bprep, cstv);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    const float* xf = (const float*)x;
+    const float* wf = (const float*)w;
+    if (sh.NS == 16)
+        e = launch_grouped<16, 128>(xf, wf, llk, m, s, bprep, cstv, tiles, G,
+                                    n_chunks, chunk_start, chunk_row,
+                                    unit_row, partials, st);
+    else if (sh.NS == 80)
+        e = launch_grouped<80, 128>(xf, wf, llk, m, s, bprep, cstv, tiles, G,
+                                    n_chunks, chunk_start, chunk_row,
+                                    unit_row, partials, st);
+    else
+        e = launch_grouped<144, 64>(xf, wf, llk, m, s, bprep, cstv, tiles, G,
+                                    n_chunks, chunk_start, chunk_row,
+                                    unit_row, partials, st);
+    if (e != cudaSuccess) return (int)e;
+    const long long mm = (long long)(K + 1) * (2 * D + 2);
+    reduce_rows_kernel<<<dim3((unsigned)((mm + NT - 1) / NT), S), NT, 0,
+                         st>>>(partials, row_chunks, mm, (float*)out);
+    return (int)cudaGetLastError();
 }
 
 }  // extern "C"

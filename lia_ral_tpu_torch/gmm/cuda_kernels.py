@@ -90,7 +90,8 @@ rounding (~1e-5 of the largest sum; tests/test_torch_stats_kernels.py
 ``launch_counts`` counts kernel launches per wrapper and arithmetic
 (plain ints, one per launch, nothing else adds to them), keyed
 ``em_stats_fused[<Mode.name>]``, e.g. ``em_stats_fused[fastStats]`` or
-``bw_stats_fused[exp_mode=fast2,stats_pass=bf16]``, so a run can show
+``bw_stats_fused[exp_mode=fast2,stats_pass=bf16]``, and
+``em_stats_fused_grouped`` for K1's grouped entry, so a run can show
 that its main path went through the kernels.  A spelling that runs an
 existing arithmetic counts under it: ``mxu_precision="high"`` under the
 default, ``"default"`` under fastMath.  While a profiler records, the
@@ -105,6 +106,7 @@ import itertools
 import math
 import threading
 
+import numpy as np
 import torch
 
 from ..utils.logging import span
@@ -256,6 +258,7 @@ def _library(mode: Mode):
 launch_counts = {_count_key(k, m): 0 for k in ("em_stats_fused",
                                                "bw_stats_fused")
                  for m in all_modes()}
+launch_counts["em_stats_fused_grouped"] = 0     # K1's grouped entry
 _count_lock = threading.Lock()      # the shards of a mesh launch in threads
 
 
@@ -593,12 +596,13 @@ def stats_chunk_len(n: int, k: int) -> int:
     return min(MAX_CHUNK, max(FRAME_TILE, -(-per // FRAME_TILE) * FRAME_TILE))
 
 
-def _launch(name: str, mode: Mode, x: torch.Tensor, call) -> None:
+def _launch(name: str, key: str, x: torch.Tensor, call) -> None:
+    """``call(stream)`` on x's device and stream; counted under ``key``."""
     with torch.cuda.device(x.device):
         err = call(torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, name)
     with _count_lock:
-        launch_counts[_count_key(name, mode)] += 1
+        launch_counts[key] += 1
 
 
 def _seed64(seed: int) -> int:
@@ -610,16 +614,30 @@ def _seed64(seed: int) -> int:
 def em_stats_fused(x: torch.Tensor, w: torch.Tensor, gmm: GmmDiag,
                    chunk: int | None = None, compute_dtype=None,
                    mxu_precision: str = "bf16x3", exp_mode: str = "exp2",
-                   stats_pass: str = "x3", seed: int = 0) -> EmStats:
+                   stats_pass: str = "x3", seed: int = 0,
+                   groups: Groups | None = None) -> EmStats:
     """K1: EM stats of x (N,D) with frame weights w (N,), in the mode the
     JAX arguments name (``seed`` keys ``"bf16sr"``'s random bits).
 
     On CUDA, ``chunk`` frames (default: ``stats_chunk_len(N, K)``) go to
     each CTA row of the stats pass; the per-chunk partials are added in a
     fixed order (a single chunk writes the result directly), so the result
-    reproduces to every digit for a given N and chunk."""
+    reproduces to every digit for a given N and chunk.
+
+    With ``groups`` (``group_rows``), ``gmm`` is a bank of S models
+    (weights (S,K), means and cov_inv (S,K,D)) and x, w hold each row's
+    frames where ``groups`` says: the stats of each row under its own
+    model, with a leading row axis, by K1's grouped entry (one launch of
+    each pass); the default tier only."""
     mode = check_mode(compute_dtype, mxu_precision, exp_mode, stats_pass)
     seed = _seed64(seed)
+    if groups is not None:
+        if mode != TIER_MODES[0] or chunk is not None:
+            raise ValueError("em_stats_fused: groups take the default tier "
+                             "and their own chunks, not "
+                             f"{mode.name or 'the default'} with chunk "
+                             f"{chunk}")
+        return _em_stats_grouped(x, w, gmm, groups)
     if x.device.type == "cpu":
         return em_stats_reference(x, w, gmm, compute_dtype=compute_dtype,
                                   mxu_precision=mxu_precision,
@@ -640,7 +658,7 @@ def em_stats_fused(x: torch.Tensor, w: torch.Tensor, gmm: GmmDiag,
             dtype=torch.uint8, device=x.device)
         out = torch.empty((k + 1, 2 * d + 2), dtype=torch.float32,
                           device=x.device)
-        _launch("em_stats_fused", mode, x,
+        _launch("em_stats_fused", _count_key("em_stats_fused", mode), x,
                 lambda stream: lib.lia_em_stats_wgmma(
                     x.data_ptr(), w.data_ptr(), gmm.weights.data_ptr(),
                     gmm.means.data_ptr(), gmm.cov_inv.data_ptr(), n, d, k,
@@ -648,6 +666,115 @@ def em_stats_fused(x: torch.Tensor, w: torch.Tensor, gmm: GmmDiag,
                     out.data_ptr(), stream))
     return EmStats(n=out[:k, 2 * d], sum_x=out[:k, d:2 * d],
                    sum_xx=out[:k, :d], llk=out[k, 0], count=out[k, 1])
+
+
+GROUP_UNIT = 256        # a grouped row's first frame: a multiple of this
+
+
+@dataclasses.dataclass(frozen=True)
+class Groups:
+    """Where K1's grouped entry finds the frames of each of S rows: row r's
+    ``counts[r]`` frames from ``starts[r]``, then frames of weight 0 up to
+    the next multiple of ``GROUP_UNIT``, where row r + 1 starts;
+    ``n_frames`` in all.  On a card also the kernel's table (int32, the
+    layout ``lia_em_stats_grouped_wgmma`` documents), ``chunk_len`` and
+    ``n_chunks``."""
+
+    starts: tuple[int, ...]
+    counts: tuple[int, ...]
+    n_frames: int
+    chunk_len: int = 0
+    n_chunks: int = 0
+    table: torch.Tensor | None = None
+
+    @property
+    def pad_frames(self) -> int:
+        """The frames of weight 0 that align the rows."""
+        return self.n_frames - sum(self.counts)
+
+
+def group_rows(counts, k: int, device) -> Groups:
+    """The layout of rows of ``counts`` frames for K1's grouped entry with
+    K = ``k`` components, and on a CUDA ``device`` its table there
+    (``group_table``)."""
+    counts = tuple(int(c) for c in counts)
+    padded = [-(-c // GROUP_UNIT) * GROUP_UNIT for c in counts]
+    starts = tuple(int(v) for v in np.cumsum([0] + padded[:-1]))
+    n = sum(padded)
+    if torch.device(device).type != "cuda" or n == 0:
+        return Groups(starts, counts, n)
+    chunk_len, n_chunks, table = group_table(padded, k)
+    return Groups(starts, counts, n, chunk_len, n_chunks,
+                  torch.as_tensor(table, device=device))
+
+
+def group_table(padded, k: int) -> tuple[int, int, np.ndarray]:
+    """(chunk_len, n_chunks, table) of rows of ``padded`` frames each (a
+    multiple of ``GROUP_UNIT``, one row after another): each non-empty
+    row cut into chunks of at most ``chunk_len`` frames
+    (``stats_chunk_len`` of all the frames, rounded up to a multiple of
+    ``GROUP_UNIT``), an empty row into none; the table as
+    ``lia_em_stats_grouped_wgmma`` takes it."""
+    n = sum(padded)
+    chunk_len = -(-stats_chunk_len(n, k) // GROUP_UNIT) * GROUP_UNIT
+    chunk_start, chunk_row, row_chunks = [], [], [0]
+    s0 = 0
+    for r, p in enumerate(padded):
+        for c0 in range(s0, s0 + p, chunk_len):
+            chunk_start.append(c0)
+            chunk_row.append(r)
+        row_chunks.append(len(chunk_row))
+        s0 += p
+    unit_row = np.repeat(np.arange(len(padded)),
+                         np.asarray(padded, np.int64) // GROUP_UNIT)
+    table = np.concatenate([chunk_start, [n], chunk_row, row_chunks,
+                            unit_row]).astype(np.int32)
+    return chunk_len, len(chunk_row), table
+
+
+def _em_stats_grouped(x: torch.Tensor, w: torch.Tensor, bank: GmmDiag,
+                      groups: Groups) -> EmStats:
+    """``em_stats_fused`` with ``groups``: the plain version of each row
+    on a CPU tensor, K1's grouped entry on a CUDA one."""
+    s, k, d = bank.means.shape
+    if len(groups.counts) != s:
+        raise ValueError(f"em_stats_fused: {len(groups.counts)} rows for "
+                         f"a bank of {s} models")
+    if x.shape[0] != groups.n_frames:
+        raise ValueError(f"em_stats_fused: {x.shape[0]} frames, the "
+                         f"groups lay out {groups.n_frames}")
+    if x.device.type == "cpu":
+        return EmStats.stack([
+            em_stats_reference(x[a:a + c], w[a:a + c], GmmDiag(
+                bank.weights[r], bank.means[r], bank.cov_inv[r]))
+            for r, (a, c) in enumerate(zip(groups.starts, groups.counts))])
+    if not all(t.is_contiguous()
+               for t in (bank.weights, bank.means, bank.cov_inv)):
+        raise ValueError("em_stats_fused: the bank must be contiguous")
+    _check_cuda_inputs("em_stats_fused", x, w,
+                       GmmDiag(bank.weights[0], bank.means[0],
+                               bank.cov_inv[0]))
+    if groups.table is None or groups.table.device != x.device:
+        raise ValueError("em_stats_fused: the groups have no table on "
+                         f"{x.device} (group_rows on that device)")
+    lib = _library(TIER_MODES[0])
+    n = groups.n_frames
+    with span("lia.gmm.em_stats_fused"):
+        scratch = torch.empty((lib.lia_stats_grouped_scratch_bytes(
+            n, d, k, s, groups.chunk_len, groups.n_chunks),),
+            dtype=torch.uint8, device=x.device)
+        out = torch.empty((s, k + 1, 2 * d + 2), dtype=torch.float32,
+                          device=x.device)
+        _launch("em_stats_fused", "em_stats_fused_grouped", x,
+                lambda stream: lib.lia_em_stats_grouped_wgmma(
+                    x.data_ptr(), w.data_ptr(), bank.weights.data_ptr(),
+                    bank.means.data_ptr(), bank.cov_inv.data_ptr(), n, d, k,
+                    s, groups.chunk_len, groups.n_chunks,
+                    groups.table.data_ptr(), scratch.data_ptr(),
+                    out.data_ptr(), stream))
+    return EmStats(n=out[:, :k, 2 * d], sum_x=out[:, :k, d:2 * d],
+                   sum_xx=out[:, :k, :d], llk=out[:, k, 0],
+                   count=out[:, k, 1])
 
 
 def bw_stats_fused(x: torch.Tensor, w: torch.Tensor, gmm: GmmDiag,
@@ -682,7 +809,7 @@ def bw_stats_fused(x: torch.Tensor, w: torch.Tensor, gmm: GmmDiag,
             device=x.device)
         out = torch.empty((s, k + 1, 2 * d + 2), dtype=torch.float32,
                           device=x.device)
-        _launch("bw_stats_fused", mode, x,
+        _launch("bw_stats_fused", _count_key("bw_stats_fused", mode), x,
                 lambda stream: lib.lia_bw_stats_wgmma(
                     x.data_ptr(), w.data_ptr(), gmm.weights.data_ptr(),
                     gmm.means.data_ptr(), gmm.cov_inv.data_ptr(), s, t, d, k,

@@ -91,6 +91,27 @@ def default_stats_fn(chunk: int = 4096, block: int | None = None,
     return fn
 
 
+def grouped_stats_fn():
+    """The default tier's stats pass of S models at once, each over its
+    own frames: ``fn(xc, wc, bank, groups) -> EmStats`` with a leading row
+    axis, for frames ``xc`` and weights ``wc`` laid out as ``groups``
+    (``cuda_kernels.group_rows``) says, and the bank's S models (weights
+    (S,K), means and cov_inv (S,K,D)).  A CUDA tensor goes to K1's grouped
+    entry (``em_stats_fused`` with ``groups``: one launch); a CPU tensor
+    to the f32 stats path of each row's own frames
+    (``kernels.em_stats_chunked``), as ``default_stats_fn`` does."""
+
+    def fn(xc, wc, bank, groups):
+        if xc.device.type == "cuda":
+            return em_stats_fused(xc, wc, bank, groups=groups)
+        return EmStats.stack([
+            em_stats_chunked(xc[a:a + c], wc[a:a + c],
+                             GmmDiag(bank.weights[r], bank.means[r],
+                                     bank.cov_inv[r]))
+            for r, (a, c) in enumerate(zip(groups.starts, groups.counts))])
+    return fn
+
+
 def schedule_value(begin: float, end: float, nb_it: int, it: int) -> float:
     """Linear parameter schedule — reference setItParameter."""
     if nb_it < 2:
@@ -108,15 +129,16 @@ def global_mean_cov(x: torch.Tensor, w: torch.Tensor
 
 
 def m_step(stats: EmStats, min_occ: float = 1e-6) -> GmmDiag:
-    """Closed-form diagonal-GMM M-step (ALIZE MixtureStat::getEM)."""
-    occ = torch.clamp(stats.n, min=min_occ)[:, None]
+    """Closed-form diagonal-GMM M-step (ALIZE MixtureStat::getEM).  Stats
+    with leading axes (rows of ``EmStats.stack``) give one model a row."""
+    occ = torch.clamp(stats.n, min=min_occ)[..., None]
     means = stats.sum_x / occ
     cov = torch.clamp(stats.sum_xx / occ - means * means, min=1e-8)
-    weights = stats.n / torch.clamp(stats.count, min=1e-30)
-    wsum = torch.sum(weights)
+    weights = stats.n / torch.clamp(stats.count, min=1e-30)[..., None]
+    wsum = torch.sum(weights, dim=-1, keepdim=True)
     # empty selection (all-zero frame weights) → keep a uniform mixture
     weights = torch.where(wsum > 0, weights / torch.clamp(wsum, min=1e-30),
-                          torch.full_like(weights, 1.0 / stats.n.shape[0]))
+                          torch.full_like(weights, 1.0 / stats.n.shape[-1]))
     return GmmDiag(weights=weights, means=means, cov_inv=1.0 / cov)
 
 

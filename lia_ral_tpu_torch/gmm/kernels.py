@@ -40,6 +40,12 @@ class EmStats:
             return torch.zeros(shape, dtype=dtype, device=device)
         return cls(n=z(k), sum_x=z(k, d), sum_xx=z(k, d), llk=z(), count=z())
 
+    @classmethod
+    def stack(cls, rows: list["EmStats"]) -> "EmStats":
+        """Several rows' stats with a leading row axis."""
+        return cls(*(torch.stack(f) for f in zip(
+            *(dataclasses.astuple(r) for r in rows))))
+
     def merge(self, other: "EmStats") -> "EmStats":
         return EmStats(*(a + b for a, b in zip(
             dataclasses.astuple(self), dataclasses.astuple(other))))

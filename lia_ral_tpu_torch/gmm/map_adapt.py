@@ -83,15 +83,16 @@ def map_adapt(world: GmmDiag, em_model: GmmDiag, frame_count: torch.Tensor,
         return world.replace(means=(wm * world.means + cm * em_model.means)
                              / (wm + cm))
     if cfg.method in ("MAPOccDep", "MAPModelBased"):
-        # occupancy-dependent relevance-factor MAP (cpp:445-490)
-        occ = em_model.weights * frame_count                  # (K,)
+        # occupancy-dependent relevance-factor MAP (cpp:445-490); an EM
+        # estimate with leading axes (and its counts) adapts one model a row
+        occ = em_model.weights * frame_count[..., None]       # (..., K)
         out = world
         if cfg.mean_adapt:
-            a = (occ / (occ + cfg.mean_r))[:, None]
+            a = (occ / (occ + cfg.mean_r))[..., None]
             out = out.replace(
                 means=(1.0 - a) * world.means + a * em_model.means)
         if cfg.var_adapt:
-            a = (occ / (occ + cfg.var_r))[:, None]
+            a = (occ / (occ + cfg.var_r))[..., None]
             dm = world.means - em_model.means
             cov = ((1.0 - a) / world.cov_inv + a / em_model.cov_inv
                    + (1.0 - a) * a * dm * dm)
@@ -99,7 +100,7 @@ def map_adapt(world: GmmDiag, em_model: GmmDiag, frame_count: torch.Tensor,
         if cfg.weight_adapt:
             a = occ / (occ + cfg.weight_r)
             w = a * em_model.weights + (1.0 - a) * world.weights
-            out = out.replace(weights=w / torch.sum(w))
+            out = out.replace(weights=w / torch.sum(w, dim=-1, keepdim=True))
         return out
     raise ValueError(f"unknown MAP method {cfg.method}")
 

@@ -74,10 +74,19 @@ counters = {name: 0 for name in (
     "lia.seg.decodes",          # decodes of seg.diarization's E-HMM and
                                 # ReSegmentation (emissions, then Viterbi)
     "lia.seg.viterbi_frames",   # their frames, summed over decodes
-    "lia.seg.state_adapts",     # state rows MAP-adapted (one adapt_model each)
+    "lia.seg.state_adapts",     # state rows MAP-adapted: the rows of the
+                                # (S, N) masks of each batched adaptation
     "lia.seg.empty_adapts",     # of those, rows adapted on an all-zero mask
+    "lia.seg.grouped_launches",  # grouped stats passes of those adaptations
+                                # (one K1 launch each on the card; none where
+                                # no row has a frame): nb_it an adaptation
+    "lia.seg.grouped_frames",   # frames of non-zero mask they take, padding
+                                # excluded, summed over passes
+    "lia.seg.grouped_pad_frames",  # frames of weight 0 that align the rows
+                                # to the kernel's 256-frame unit, likewise
     "lia.seg.h2d_bytes",        # bytes they hand the device: host frames,
-                                # (S, N) masks, transitions and activity rows
+                                # (S, N) masks, transitions and activity rows,
+                                # and on a card each adaptation's row layout
     "lia.seg.d2h_bytes",        # bytes they read back: each path and, in the
                                 # E-HMM, each (N, S) emission block
 )}

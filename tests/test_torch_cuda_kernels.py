@@ -674,10 +674,13 @@ def test_viterbi_cuda_never_reaches_the_plain_loop(cuda_device, monkeypatch):
     assert (path[:299] == 0).all() and (path[300:599] == 1).all()
     world = _gmm(5, 8, 6, cuda_device)
     k1 = ck.launch_counts["em_stats_fused"]
+    k1g = ck.launch_counts["em_stats_fused_grouped"]
     diarization.e_hmm_segmentation(x, world, max_speakers=2,
                                    init_seg_frames=100, nb_decode_it=1)
-    # 1 + 1·(1 + 1) adaptations of 2 rows × 3 MAP iterations; 2 + 1·2 decodes
-    assert ck.launch_counts["em_stats_fused"] == k1 + 3 * 2 * 3
+    # 1 + 1·(1 + 1) adaptations × 3 MAP iterations, one grouped K1 launch
+    # each over both rows; 2 + 1·2 decodes
+    assert ck.launch_counts["em_stats_fused_grouped"] == k1g + 3 * 3
+    assert ck.launch_counts["em_stats_fused"] == k1
     assert hmm.launch_counts["viterbi"] == before + 1 + 4
     em = torch.zeros((10, 3), device=cuda_device)
     with pytest.raises(ValueError):

@@ -164,7 +164,8 @@ def test_fast_math_spellings_are_one_mode(rng):
 def test_mode_records_and_launch_keys():
     """51 distinct arithmetics per kernel; the four tiers keep their keys
     and ids; every mode's keywords give it back; each has a launch count
-    of its own for each kernel, starting at 0 after a reset."""
+    of its own for each kernel, as K1's grouped entry has, starting at 0
+    after a reset."""
     modes = ck.all_modes()
     assert len(modes) == len(set(modes)) == 51
     assert modes[:4] == list(ck.TIER_MODES)
@@ -184,7 +185,9 @@ def test_mode_records_and_launch_keys():
         assert (lp, ck.EXP_MODES[em], ck.STATS_FORMS[form], bool(nx)) == (
             m.logit_passes, m.exp_mode, m.stats, m.nx)
     ck.reset_launch_counts()
-    assert len(ck.launch_counts) == 102
+    # 51 modes of each kernel, and K1's grouped entry (the default tier)
+    assert len(ck.launch_counts) == 2 * 51 + 1
+    assert "em_stats_fused_grouped" in ck.launch_counts
     assert not any(ck.launch_counts.values())
 
 

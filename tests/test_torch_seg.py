@@ -34,6 +34,7 @@ from lia_ral_tpu_torch import convert
 from lia_ral_tpu_torch.backend.eval import der as tder
 from lia_ral_tpu_torch.gmm import cuda_kernels as ck
 from lia_ral_tpu_torch.gmm import em as tem
+from lia_ral_tpu_torch.gmm.scoring import stack_gmms
 from lia_ral_tpu_torch.io.features import write_feature_file
 from lia_ral_tpu_torch.io.labels import (Segment, read_label_file,
                                          write_label_file)
@@ -509,7 +510,7 @@ def test_batched_state_adapt_matches_jax_and_keeps_empty_rows(rng):
     one = tdz._train_state_model(_gen(), torch.from_numpy(x),
                                  torch.from_numpy(masks[0]), tw, map_reg=3.0)
     assert torch.equal(one.means, got.means[0])
-    world3 = tdz.stack_gmms([tw, tw, tw])
+    world3 = stack_gmms([tw, tw, tw])
     merged = tdz._merge_state_rows(world3, got, np.array([True, False, True]))
     assert torch.equal(merged.means[0], got.means[0])
     assert torch.equal(merged.means[1], tw.means)

@@ -69,11 +69,12 @@ def test_counters_equal_their_closed_forms_and_spans_nest(
         rng, tmp_path, monkeypatch):
     x, world = _case(rng)
     _, plain_path, plain_rpath = _run(x, world)
-    empty = []
+    empty, rows = [], []
     inner = tdz._batched_state_adapt
 
     def counting(generator, xt, masks, w, **kw):
         empty.append(int((masks.sum(1) == 0).sum()))
+        rows.append((masks != 0).sum(1).tolist())
         return inner(generator, xt, masks, w, **kw)
 
     monkeypatch.setattr(tdz, "_batched_state_adapt", counting)
@@ -94,6 +95,14 @@ def test_counters_equal_their_closed_forms_and_spans_nest(
     assert len(empty) == adapts_e + adapts_r
     # the E-HMM's first adaptation and each seed adapt one row alone
     assert empty[0] == S - 1 and counted["lia.seg.empty_adapts"] == sum(empty)
+    # one grouped stats pass a MAP iteration of each adaptation with a
+    # frame, over the rows' own frames, each row from a multiple of 256
+    nb_it, unit = 3, 256
+    assert all(sum(r) for r in rows)
+    assert counted["lia.seg.grouped_launches"] == nb_it * len(rows)
+    assert counted["lia.seg.grouped_frames"] == nb_it * sum(map(sum, rows))
+    assert counted["lia.seg.grouped_pad_frames"] == nb_it * sum(
+        -c % unit for r in rows for c in r)
     assert counted["lia.seg.h2d_bytes"] == 4 * (
         2 * N * D                                          # the frames, twice
         + (S * adapts_e + s_r * adapts_r) * N              # (S, N) masks
@@ -124,4 +133,6 @@ def test_counters_equal_their_closed_forms_and_spans_nest(
 def test_every_seg_counter_is_listed():
     assert set(SEG) == {"lia.seg.decodes", "lia.seg.viterbi_frames",
                         "lia.seg.state_adapts", "lia.seg.empty_adapts",
+                        "lia.seg.grouped_launches", "lia.seg.grouped_frames",
+                        "lia.seg.grouped_pad_frames",
                         "lia.seg.h2d_bytes", "lia.seg.d2h_bytes"}
