@@ -12,20 +12,7 @@ printed as it ends; any failure raises and the exit code is non-zero:
             one process per source, side by side, and g++ builds
             native/liaio.cpp (the feature reader) and native/oracle.cpp
             (the f64 parity oracle) beside them
-3. K1       em_stats_fused in every tier (default, fastStats, fastMath,
-            both) against its plain version (and closer to it than to
-            another tier's), ~5 % zero-weight frames, at the shapes the
-            main paths give it: K=2048, D=39, 65,536 frames (the UBM's);
-            K=3, D=1, 2000 frames (the energy VAD's); K=2048, D=39, 10,000
-            frames (a MAP client's); K=128, D=24, 24,000 frames under a
-            0/1 mask and under an all-zero one (a diarization state's
-            MAP; the latter gives all-zero stats); K=32, D=24, 6000
-            frames (an event model's); K=128, D=40, 2048 frames (the audio
-            path's); a rerun reproduces every digit
-4. K2       bw_stats_fused in every tier against its plain version,
-            K=2048, D=39, S=64 × T=2000, plus T=2060 and T=61, ragged
-            masks and an all-zero utterance
-5. slice    the library path at full width on a synthetic corpus (1M
+3. slice    the library path at full width on a synthetic corpus (1M
             frames = 10,000 audio-s, 500 utterances × 2000 frames, 50
             speakers): mixture_init → train_model (K=2048, 3 EM
             iterations) → bw_stats_batch → init_t (R=400) → estimate_w
@@ -33,7 +20,12 @@ printed as it ends; any failure raises and the exit code is non-zero:
             non-decreasing within 1e-3 nats/frame, both kernels launched,
             and the i-vectors of a rerun through the plain stats paths
             from the same init within 1e-3·max|w|.
-6. cli      the same corpus as 500 SPRO4 files with .lbl files, through
+4. tiers    K1 on the slice's 1M frames and K2 on its 500 × 2000, with
+            the slice's UBM, against their plain versions in each tier
+            (the K1/K2 budgets, llk, count; closer to its own tier's
+            plain version than to another's; a rerun equal to the
+            digit), each timed beside the least time the card could take.
+5. cli      the same corpus as 500 SPRO4 files with .lbl files, through
             ``python -m lia_ral_tpu_torch`` entry points in-process:
             TrainWorld (3 EM iterations) → TotalVariability (R=400, 2
             iterations) → IvExtractor (PCG) → IvTest (cosine, 50 models
@@ -48,21 +40,7 @@ printed as it ends; any failure raises and the exit code is non-zero:
             inside it (CUDA events around each wrapper call).  Every
             feature file goes through the native reader (its read counts:
             not one numpy read of these SPRO4 files).
-7. timing   each kernel, in every tier, and its plain version at the
-            slice's shapes (1M frames; K2 as 500 × 2000), CUDA events,
-            median of 3 after warm-up; the last outputs of each pair are
-            held against each other as in phases 3 and 4.  K1's default
-            tier is also timed at a MAP client's shape (10,000 frames),
-            the energy VAD's (2000 frames, K=3, D=1) and a diarization
-            state's (24,000 frames, K=128, D=24, 0/1 mask).  Beside each
-            time stands its bound (``bound_ms``: the larger of the bytes
-            each input and output needs once over 3.35 TB/s and the two
-            products' flops, in the tier's one or three bf16 passes, over
-            989 TFLOP/s).  No single PyTorch call computes either
-            function, so ``library_ms`` is null.  (The SIMT f32 design
-            that these kernels replaced is gone from the tree; its recorded
-            times stand in PERF.md, not in this script's output.)
-8. gmm-ubm  the GMM-UBM system of configs 1 and 2 at full width: phase
+6. gmm-ubm  the GMM-UBM system of configs 1 and 2 at full width: phase
             6's corpus (seed 0, speakers also differing by per-component
             offsets) as 500 SPRO4 files with a 40th log-energy column,
             through ``python -m lia_ral_tpu_torch`` entry points
@@ -85,8 +63,8 @@ printed as it ends; any failure raises and the exit code is non-zero:
             numpy read); then the 500 raw files are read through each
             reader (the native batched loader and numpy), timed, and the
             arrays held equal to the digit.
-9. backend  the i-vector back end of configs 3 and 5 (K=2048, D=39,
-            R=400) on phase 6's default-tier chain, whose
+7. backend  the i-vector back end of configs 3 and 5 (K=2048, D=39,
+            R=400) on phase 5's default-tier chain, whose
             TotalVariability call also writes the eigenDecomposition
             matrices and a stats checkpoint: the ubmWeight matrix
             (``weighted_cov``) and IvExtractor in ubmWeight mode from
@@ -107,8 +85,8 @@ printed as it ends; any failure raises and the exit code is non-zero:
             ivnorm, scoring and plda on the card against the CPU from
             the same inputs within 1e-3 of scale (through invariants
             where an eigensolver or QR leaves signs open).
-10. jfa     the JFA system of config 4 (300 eigenvoices, 100
-            eigenchannels, D) on phase 8's normalised features, labels,
+8. jfa     the JFA system of config 4 (300 eigenvoices, 100
+            eigenchannels, D) on phase 6's normalised features, labels,
             world model and clients: ComputeJFAStats on the 250
             training sessions (K2) → EigenVoice → EigenChannel →
             EstimateDMatrix from the checkpoint (2 iterations each) →
@@ -121,10 +99,10 @@ printed as it ends; any failure raises and the exit code is non-zero:
             library's V iterations equal to EigenVoice's file and the
             EM likelihood of 2 sessions non-decreasing over them, the D
             update from a non-zero D, the scores.  Prints walls, K2 ms
-            and launches per tool, the EER beside phase 8's raw EER and
+            and launches per tool, the EER beside phase 6's raw EER and
             the phase's peak device memory.
 
-11. diar    diarization at the milestone shape of
+9. diar    diarization at the milestone shape of
             scripts/milestone_diar.py (the generator, init models and
             scoring helpers of its counterpart
             scripts/torch_milestone_diar.py): a 5-minute conversation of
@@ -151,7 +129,7 @@ printed as it ends; any failure raises and the exit code is non-zero:
             pointers filling shared memory and one row over), timed at
             N=30,000 and 60,000 with ns and SM cycles a step beside the
             chain's estimate.
-12. serving a ``SpkDetServer`` on an ephemeral localhost port with phase
+10. serving a ``SpkDetServer`` on an ephemeral localhost port with phase
             8's world (K=2048, D=39) and normalised features, driven
             through ``RemoteSpkDetClient``: load_world, send_features +
             train_speaker for the 40 targets, verify on a target and an
@@ -164,9 +142,9 @@ printed as it ends; any failure raises and the exit code is non-zero:
             (host clock around the client call).  Then the audio path at
             8 kHz with a K=128 world (send_audio → MFCC + deltas →
             normalize_features → train, verify), and SpkAdapt on 10
-            targets of phase 8 (WMAP, without and with online ZNORM).
-13. gmm-svm the GMM-supervector SVM system and the twenty LIA_Utils
-            tools, on phase 8's world (K=2048, D=39: supervectors of
+            targets of phase 6 (WMAP, without and with online ZNORM).
+11. gmm-svm the GMM-supervector SVM system and the twenty LIA_Utils
+            tools, on phase 6's world (K=2048, D=39: supervectors of
             79,872 dimensions), features, models and 8,000 main trials,
             through ``python -m lia_ral_tpu_torch`` entry points
             in-process: TrainTarget outputAdaptParam (KL supervectors of
@@ -179,11 +157,11 @@ printed as it ends; any failure raises and the exit code is non-zero:
             (40 targets, K1), ComputeTest nap and dotProduct (napMatrix)
             on the 8,000 trials, NormFeat featNAP on 50 files; then
             Scoring (NIST, identification), FusionScore, ScoreWarp, Hist on
-            phase 8's score files, ReadModel, ReadFeatFile, ExtractParams
+            phase 6's score files, ReadModel, ReadFeatFile, ExtractParams
             (10 files), PolyExp (50 files; computeR, normalize, default),
             GmmTokenizer (symbols, confusion matrix), BNGram (orders 1-3),
             LabelNGram, SequenceExtractor, SequenceDecode on the token
-            streams, LabelFusion and TimeCluster on phase 11's labels.
+            streams, LabelFusion and TimeCluster on phase 9's labels.
             Checks each score file's trial count and finite scores, mean
             target above mean impostor score for SVM, nap and dotProduct,
             K1 and svm_dual launches per tool against the counts the loops
@@ -201,17 +179,17 @@ printed as it ends; any failure raises and the exit code is non-zero:
             the chain estimate; the plain loop on the card once).  Prints
             each tool's wall, K1 and svm_dual device ms and launches per
             tool, the SVM, nap and dotProduct EERs.
-14. parallel numThread on the one card: meshes of shards of cuda:0 (one
+12. parallel numThread on the one card: meshes of shards of cuda:0 (one
             thread and one CUDA stream a shard, collectives reducing in
             shard order).  sharded_stats_fn on a 4 × 1 mesh at 1M frames,
             K=2048, D=39, default and fastStats (K1 4 times a call,
             against serial K1 within the K1 budgets, count exact);
             sharded_em_stats_2d on 2 × 2 against em_stats_chunked;
             sharded_tv_e_step (4 × 1) and sharded_tv_e_step_2d (2 × 2) on
-            phase 6's stats and T (500 utterances, R=400; peak memory
+            phase 5's stats and T (500 utterances, R=400; peak memory
             printed); sharded_estimate_w (pcg_tol 0); the JFA V and U
-            iterations on phase 10's stats and subspaces; PLDA EM and
-            scoring on phase 9's normalised vectors and PLDA model: each
+            iterations on phase 8's stats and subspaces; PLDA EM and
+            scoring on phase 7's normalised vectors and PLDA model: each
             within 1e-3 of scale of its serial function and a rerun
             equal to the digit.  TrainWorld (K1 4 times an iteration) and
             TotalVariability with numThread 4, the visible-devices
@@ -224,32 +202,12 @@ printed as it ends; any failure raises and the exit code is non-zero:
             extraction problems of tests/_multihost_worker.py, the ranks
             equal to the digit.  Then K1 at 1M frames timed serial and
             sharded.
-15. oracle  scripts/torch_oracle_parity.py at scale small (K=256, D=24,
+13. oracle  scripts/torch_oracle_parity.py at scale small (K=256, D=24,
             R=64, 4000 trials): the port's chain on the card against the
             f64 oracle stage by stage; per-trial LLR within 1e-3 and
             i-vectors within 1e-3 of scale; the deviations and both EER
             deltas printed beside the JAX package's.
-16. modes   every other arithmetic of K1 and K2 (the 47 modes of
-            ``cuda_kernels.all_modes`` beyond the four tiers: stats_pass
-            bf16 / bf16x2p / bf16x2x / bf16sr, exp_mode exp / fast2,
-            mxu_precision highest, in every combination) at full width on
-            the problem of scripts/torch_sweep_fused.py (1M frames; K2 as
-            500 × 2000; K=2048, D=39; the JAX sweeps' draws): each kernel
-            against its plain version (the one-pass budgets, 2e-3 of
-            scale, for one-pass, two-pass and stochastically rounded
-            stats; the default's for three- and six-pass stats), kernel
-            and plain timed (CUDA events, median of 3), the bound of its
-            logit and stats passes, and the largest relative occupancy
-            error against the float64 oracle of the sweeps (65,536 frames;
-            16 utterances), printed for the four tiers too.  For
-            "bf16sr": two calls with one seed equal to the digit, two
-            seeds different; on the plain versions (products rounded to
-            nearest in f32), the mean signed occupancy error over K
-            against float64 over 64 seeds within 4 standard errors of 0
-            and smaller in magnitude than the deterministic bf16 pass's
-            bias; the kernels' own bias printed beside it (the tensor
-            cores' f32 accumulation shifts every mode alike).
-17. milestones the record drivers of scripts/ (torch_milestone_*.py,
+14. milestones the record drivers of scripts/ (torch_milestone_*.py,
             imported; their ``run`` functions) through the port's tools
             and API on the card: eer at full width (K=2048, D=39, R=400,
             PLDA rank 150, corpus v3: 300 held-out dev speakers x 10
@@ -269,18 +227,22 @@ printed as it ends; any failure raises and the exit code is non-zero:
             eer, adapt and audio, K2 by eer and jfa.  Prints every EER,
             the verify latencies, the stage walls and launches of each.
 
+K1 and K2 in the arithmetics beyond the tiers, and at the other shapes
+the tools give them, are held against their plain versions by the
+``cuda``-marked tests of tests/test_torch_cuda_kernels.py; the
+benchmark's roofline metrics (benchmark/run.py) and the sweeps
+scripts/torch_sweep_fused.py and scripts/torch_sweep_bw.py time them.
+
 The line before the last is one JSON object of per-kernel results, one
 entry per kernel and arithmetic (``launches`` summed over the main paths
-of phases 6, 8-13, 14, 15 and 17, by path in ``launches_by_path``, where
+of phases 5-14, by path in ``launches_by_path``, where
 "parallel-2-processes" counts the two ranks' launches apart and
-"milestone-<driver>" each record driver's; 0 for every
-arithmetic of phase 16, which no tool reaches; ``check_launches`` from
-the comparisons of phases 3, 4, 7, 8, 11, 13, 14 and 16; ``ms``,
-``plain_ms``, ``bound_ms``, ``bound_by``, ``library_ms`` from phase 7
-for the tiers and phase 16 for the other arithmetics, with
-``n_rel_err_f64`` from phase 16; the Viterbi kernel's from phase 11,
-the SVM dual kernel's from phase 13); the last line is {"ok": true,
-"device": {...}}.
+"milestone-<driver>" each record driver's; 0 for every arithmetic beyond
+the tiers, which no tool reaches; ``check_launches`` from the comparisons
+of phases 4, 6, 9, 11 and 12; times, bounds and errors for K1 and K2 in
+the four tiers, from phase 4, the Viterbi kernel, from phase 9, and the
+SVM dual kernel, from phase 11);
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -338,7 +300,7 @@ from lia_ral_tpu_torch.fa.tv import (TvModel, approximate_tctc,
 from lia_ral_tpu_torch.gmm import cuda_kernels as ck
 from lia_ral_tpu_torch.gmm.em import (TrainCfg, default_stats_fn,
                                       mixture_init, train_model)
-from lia_ral_tpu_torch.gmm.kernels import em_stats_chunked
+from lia_ral_tpu_torch.gmm.kernels import EmStats, em_stats_chunked
 from lia_ral_tpu_torch.gmm.map_adapt import MapCfg, adapt_model
 from lia_ral_tpu_torch.gmm.model import GmmDiag
 from lia_ral_tpu_torch.gmm.scoring import compute_test_llr, stack_gmms
@@ -385,38 +347,6 @@ TIERS = {"": (None, "x3"), "fastStats": (None, "bf16nx"),
 HBM_BYTES_PER_S, BF16_FLOPS_PER_S = 3.35e12, 989e12     # H100 SXM peaks
 
 
-def bound_ms(kernel: str, tier: str, n: int, k: int, d: int,
-             utterances: int = 1) -> tuple[float, str]:
-    """``passes_bound_ms`` of a tier: one or three bf16 passes for the
-    logits, and for the stats three in the default tier, one in the
-    others (fastMath's stats are one pass too)."""
-    return passes_bound_ms(kernel, 1 if "fastMath" in tier else 3,
-                           1 if tier else 3, n, k, d, utterances)
-
-
-def passes_bound_ms(kernel: str, logit_passes: int, stat_passes: int,
-                    n: int, k: int, d: int,
-                    utterances: int = 1) -> tuple[float, str]:
-    """The least time the card could take for one call: the larger of the
-    bytes (x, w, the GMM and the outputs, each once) over the memory rate
-    and the flops of the two products (logits over 2D+1 design columns;
-    stats over the 2D+1 columns K1 returns, or the D+1 that K2 returns),
-    each in its bf16 passes (1, 3 or 6 for the logits; 1, 2, 3 or 6 for
-    the stats), over the tensor cores' bf16 rate.  n counts all frames
-    (zero-weight ones are computed too).  Returns (ms, "bytes" or
-    "operations")."""
-    k1 = kernel == "em_stats_fused"
-    stat_cols = 2 * d + 1 if k1 else d + 1
-    flops = 2 * n * k * ((2 * d + 1) * logit_passes
-                         + stat_cols * stat_passes)
-    out_floats = k * (2 * d + 1) + 2 if k1 else utterances * (k * (d + 1) + 1)
-    nbytes = 4 * (n * d + n + k * (2 * d + 1) + out_floats)
-    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-    if t_ops >= t_bytes:
-        return t_ops * 1e3, "operations"
-    return t_bytes * 1e3, "bytes"
-
-
 def entry(kernel: str, tier: str) -> str:
     """The launch-count key (and JSON name) of a kernel in a tier."""
     return f"{kernel}[{tier}]" if tier else kernel
@@ -457,12 +387,6 @@ def temp_dir(prefix: str) -> str:
     return d
 
 
-def random_gmm(rng, k, d, device):
-    w = rng.random(k) + 0.5
-    return gmm_from_numpy(w / w.sum(), rng.standard_normal((k, d)),
-                          rng.random((k, d)) + 0.5, device)
-
-
 def check_stats(name, pairs, llk_pair) -> float:
     """pairs: [(label, got, want, rtol)], atol = rtol·max|want| (the JAX
     suite's CPU budgets with the atol scaled to the array).  Returns the
@@ -480,14 +404,6 @@ def check_stats(name, pairs, llk_pair) -> float:
     print(f"  {name} llk: max rel err {rel:.3e}")
     check(rel <= 1e-5, f"{name} llk rel err {rel} > 1e-5")
     return worst
-
-
-def ragged_mask(rng, s, t, device):
-    lens = rng.integers(t // 2, t + 1, s)
-    m = (np.arange(t)[None, :] < lens[:, None]).astype(np.float32)
-    m *= (rng.random((s, t)) > 0.05)           # scattered zero weights
-    m[-1] = 0.0                                 # one all-zero utterance
-    return torch.from_numpy(m.astype(np.float32)).to(device)
 
 
 def corpus(rng, device, comp_offsets: float = 0.0):
@@ -548,36 +464,85 @@ def run_slice(x, mask, init, tv_t, fused: bool):
     return ubm, bw, w, cosine_scores(models, tests), target, llks
 
 
-def state_weights(rng, n, kind, device):
-    """Frame weights as K1's callers give them: "random" in [0, 1) with
-    ~5 % exact zeros (label masks); "mask" 0/1 in runs of 2-8 s with a
-    third of the frames on (one speaker state of a diarization HMM);
-    "zero" all zero (a state that lost every frame)."""
-    if kind == "random":
-        w = rng.random(n).astype(np.float32)
-        w[rng.random(n) < 0.05] = 0.0
-    else:
-        w = np.zeros(n, np.float32)
-        pos = 0
-        while kind == "mask" and pos < n:
-            run = int(rng.integers(200, 800))
-            w[pos:pos + run] = float(rng.random() < 1 / 3)
-            pos += run
-    return torch.from_numpy(w).to(device)
+def bound_ms(kernel: str, tier: str, n: int, k: int, d: int,
+             utterances: int = 1) -> tuple[float, str]:
+    """The least time one call in a tier could take: the larger of the
+    bytes (inputs and outputs, each once) over the memory rate and the
+    flops of the two products (logits over 2D+1 columns, in fastMath's
+    one bf16 pass or three; stats over K1's 2D+1 or K2's D+1 columns, in
+    the default tier's three passes or one) over the bf16 rate; n counts
+    all frames.  Returns (ms, "bytes" or "operations")."""
+    k1 = kernel == "em_stats_fused"
+    stat_cols = 2 * d + 1 if k1 else d + 1
+    flops = 2 * n * k * ((2 * d + 1) * (1 if "fastMath" in tier else 3)
+                         + stat_cols * (1 if tier else 3))
+    out_floats = k * (2 * d + 1) + 2 if k1 else utterances * (k * (d + 1) + 1)
+    nbytes = 4 * (n * d + n + k * (2 * d + 1) + out_floats)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
 
 
 def check_rounding(name, got, tier_plain, other_plain) -> None:
     """A tier's kernel must sit much closer to its own plain version than
-    to another tier's (the default tier's; for the default tier,
-    fastStats'), in mean |error|: a kernel rounding at other points would
-    not.  (Mean, not max: a bf16 rounding that flips on an f32-level
-    difference moves one element by a whole bf16 ulp, but such flips are
-    rare.)"""
+    to another tier's, in mean |error| (a bf16 rounding that flips on an
+    f32-level difference moves one element a whole ulp, but rarely)."""
     own = float((got - tier_plain).abs().mean())
     other = float((got - other_plain).abs().mean())
     print(f"  {name}: mean|err| vs its tier {own:.3e}, vs the other tier "
           f"{other:.3e}")
     check(own < 0.5 * other, f"{name} rounds where its plain version rounds")
+
+
+def run_tiers(xu, mask, ubm, kernels) -> None:
+    """Phase 4: K1 and K2 on the slice's frames and UBM against their
+    plain versions in every tier, each timed (``timed_pair``) beside
+    ``bound_ms``."""
+    ck.reset_launch_counts()
+    xf, wf = xu.reshape(-1, D), mask.reshape(-1)
+    calls = {"em_stats_fused": (ck.em_stats_fused, ck.em_stats_reference,
+                                (xf, wf, ubm), ("n", "sum_x", "sum_xx")),
+             "bw_stats_fused": (ck.bw_stats_fused, ck.bw_stats_reference,
+                                (xu, mask, ubm), ("n", "f"))}
+    sums = {}           # entry name → (kernel's, plain version's S or F)
+    for tier, (cdt, sp) in TIERS.items():
+        kw = {"compute_dtype": cdt, "stats_pass": sp}
+        for kname, (fused, plain, args, names) in calls.items():
+            ename = entry(kname, tier)
+
+            def run(fn, fn_args=args, fn_kw=kw):
+                out = fn(*fn_args, **fn_kw)       # K1's EmStats as a tuple
+                return ((out.n, out.sum_x, out.sum_xx, out.llk, out.count)
+                        if isinstance(out, EmStats) else out)
+
+            k_ms, p_ms, got, want = timed_pair(lambda: run(fused),
+                                               lambda: run(plain))
+            label = f"{ename} {tuple(args[0].shape)}"
+            err = check_stats(label, [
+                (name, g, w, n_rtol(tier) if name == "n" else sum_rtol(tier))
+                for name, g, w in zip(names, got, want)],
+                (got[len(names)].reshape(-1), want[len(names)].reshape(-1)))
+            if kname == "em_stats_fused":
+                check(abs(float(got[4]) - float(want[4]))
+                      <= 1e-6 * float(want[4]), f"{label} count")
+            check(all(torch.equal(a, b) for a, b in zip(run(fused), got)),
+                  f"{label} rerun reproduces every digit")
+            b_ms, b_by = bound_ms(kname, tier, xf.shape[0], K, D,
+                                  utterances=xu.shape[0])
+            kernels[ename].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                  bound_by=b_by, library_ms=None,
+                                  max_abs_err=err)
+            print(f"  {ename}: {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+                  f"{b_ms:.3f} ms by {b_by} ({100 * b_ms / k_ms:.1f} %)")
+            sums[ename] = (got[1], want[1])
+    for kname in calls:
+        for tier in TIERS:
+            other = entry(kname, "" if tier else "fastStats")
+            check_rounding(entry(kname, tier), *sums[entry(kname, tier)],
+                           sums[other][1])
+    for kname, kv in kernels.items():
+        kv["check_launches"] += ck.launch_counts[kname]
 
 
 def write_corpus(d, x, lens):
@@ -709,7 +674,7 @@ def run_cli_chain(d, lists, tier, device="cuda", tools=CHAIN):
                               "--nbIt", "2", "--initScale", "0.01",
                               "--totalVariabilityMatrix", "TV",
                               "--meanEstimate", "TVmean",
-                              # for phase 9: the eigenDecomposition
+                              # for phase 7: the eigenDecomposition
                               # matrices and the stats checkpoint
                               "--approximationMode", "eigenDecomposition",
                               "--accsFilename",
@@ -737,14 +702,14 @@ def run_cli_chain(d, lists, tier, device="cuda", tools=CHAIN):
             "scores": scores}
 
 
-# -- phase 8: the GMM-UBM system of configs 1 and 2 ---------------------------
+# -- phase 6: the GMM-UBM system of configs 1 and 2 ---------------------------
 
 N_TGT = 40              # target speakers; speakers 40-49 are the cohort
 MAP_CHECK_CLIENTS, MAP_CHECK_SEGS = 5, 20
 
 
 def write_gmm_ubm_corpus(d, device):
-    """Phase 6's corpus (seed 0) with per-speaker component offsets, as
+    """Phase 5's corpus (seed 0) with per-speaker component offsets, as
     500 SPRO4 files of 40 columns: the 39 features and a synthetic
     log-energy that is low on ~20 % of frames (runs of 10-60 frames and
     the ragged tail).  No label files: EnergyDetector writes them.
@@ -882,7 +847,7 @@ def check_map_library(d, dev):
 
 
 def gmm_ubm_args(d, device):
-    """The config keys every tool of phases 8 and 10 takes: features,
+    """The config keys every tool of phases 6 and 8 takes: features,
     labels and models under d, the normalised features as input."""
     return ["--torchDevice", device, "--featureFilesPath", d + "/",
             "--labelFilesPath", d + "/", "--mixtureFilesPath", d + "/",
@@ -904,7 +869,7 @@ def check_native_reads(label) -> None:
 
 
 def time_readers(d, names) -> None:
-    """Phase 8's 500 raw files through each reader: the native batched
+    """Phase 6's 500 raw files through each reader: the native batched
     loader (``load_files_batch``, 64 files a batch) and the numpy reader
     (``read_feature_file(use_native=False)``), host clock, in turns
     (numpy, native, native, numpy; the best of each); the arrays must be
@@ -933,10 +898,10 @@ def time_readers(d, names) -> None:
 
 
 def run_gmm_ubm(kernels, dev):
-    """Phase 8: the GMM-UBM chain at full width on 500 files, K1's launch
+    """Phase 6: the GMM-UBM chain at full width on 500 files, K1's launch
     counts and device ms per tool, the scores' checks and EERs, then the
     library-level MAP check.  Returns the work directory, its lists and
-    the raw EER in percent (phase 10 goes on from them)."""
+    the raw EER in percent (phase 8 goes on from them)."""
     d = temp_dir("lia_chip_smoke_gu_")
     lists = write_gmm_ubm_corpus(d, dev)
     common = gmm_ubm_args(d, dev.type)
@@ -1010,7 +975,7 @@ def run_gmm_ubm(kernels, dev):
     return d, lists, eers["main"]
 
 
-# -- phase 9: the i-vector back end of configs 3 and 5 ------------------------
+# -- phase 7: the i-vector back end of configs 3 and 5 ------------------------
 
 PLDA_RANK, LDA_RANK, EFR_ITERATIONS, PLDA_ITERATIONS = 150, 49, 2, 10
 LIB_UTTS = 64           # utterances of the card-vs-CPU extraction checks
@@ -1167,7 +1132,7 @@ def check_backend_library(tv, weights, stats, wv, spk_ids):
 
 
 def run_backend(d, lists, kernels, dev) -> None:
-    """Phase 9: on the default-tier chain of phase 6 (its UBM, T, stats
+    """Phase 7: on the default-tier chain of phase 5 (its UBM, T, stats
     checkpoint and 500 exact i-vectors under d/default), the approximate
     extractions, IvNorm → PLDA → IvTest in every scoring, a rerun, and
     the library functions on the card against the CPU."""
@@ -1329,14 +1294,14 @@ def run_backend(d, lists, kernels, dev) -> None:
           f"{time.perf_counter() - t1:.1f} s")
 
 
-# -- phase 10: the JFA system of config 4 -------------------------------------
+# -- phase 8: the JFA system of config 4 -------------------------------------
 
 JFA_RV, JFA_RU, JFA_ITERATIONS = 300, 100, 2
 LFA_SEGS, LFA_TAU = 20, 16.0
 
 
 def run_jfa(d, lists, raw_eer, kernels, dev) -> None:
-    """Phase 10: on phase 8's normalised features, labels, world model
+    """Phase 8: on phase 6's normalised features, labels, world model
     and MAP clients under d: ComputeJFAStats → EigenVoice → EigenChannel
     → EstimateDMatrix → TrainTarget (JFA) → ComputeTest (jfa), then the
     LFA tools; K2's launch counts per tool, the V-iteration likelihoods
@@ -1501,7 +1466,7 @@ def run_jfa(d, lists, raw_eer, kernels, dev) -> None:
     sc, tgt = trial_scores(os.path.join(d, "jfa.nist"), N_TGT * N_TGT * 5)
     jfa_eer = 100 * eer(sc[tgt], sc[~tgt])
     print(f"  jfa [jfa]: mean target LLR {sc[tgt].mean():.4f}, impostor "
-          f"{sc[~tgt].mean():.4f}; EER {jfa_eer:.2f} % (phase 8's raw MAP "
+          f"{sc[~tgt].mean():.4f}; EER {jfa_eer:.2f} % (phase 6's raw MAP "
           f"EER on the same trials {raw_eer:.2f} %; the corpus has no "
           "channel variation)")
     check(sc[tgt].mean() > sc[~tgt].mean(),
@@ -1528,12 +1493,11 @@ def run_jfa(d, lists, raw_eer, kernels, dev) -> None:
         kv["launches"] += launches[kname]
 
 
-# -- phase 11: diarization at the milestone shape ------------------------------
+# -- phase 9: diarization at the milestone shape ------------------------------
 
-DIAR_SPK, DIAR_D, DIAR_FRAME = tdiar.N_SPK, tdiar.D_FEAT, tdiar.FRAME
+DIAR_SPK, DIAR_FRAME = tdiar.N_SPK, tdiar.FRAME
 DIAR_K_EVENT, DIAR_K_WORLD = tdiar.K_EVENT, tdiar.K_UBM
 DIAR_COLLAR = tdiar.TOL_FRAMES
-DIAR_STATE_FRAMES = 24000       # about the conversation's speech frames
 DIAR_MAX_SPEAKERS, DIAR_DECODE_IT, DIAR_RESEG_IT = 5, 3, 4
 # the launch-count keys of K1 on the diarization path: its entry (the
 # models TrainWorld trains) and its grouped entry (the state adaptations)
@@ -1564,7 +1528,7 @@ def viterbi_bound(n: int, s: int) -> tuple[float, str]:
 
 
 # latencies on the H100, in SM cycles, of the instructions on the chain
-# of a Viterbi step (scripts/torch_small_kernels_probe.py: a warp's
+# of a Viterbi step (as measured, PERF.md section 6: a warp's
 # exchange through shared memory, STS + __syncwarp + LDS, 28; LDS 29;
 # FADD and FMNMX 4)
 EXCHANGE_CYCLES, ALU_CYCLES = 29, 4
@@ -1665,11 +1629,11 @@ def check_viterbi(dev):
 
 
 def run_diarization(kernels, dev):
-    """Phase 11: the four LIA_SpkSeg tools at the milestone shape, K1's
+    """Phase 9: the four LIA_SpkSeg tools at the milestone shape, K1's
     and the Viterbi kernel's launches and device ms per tool, SAD error,
     speakers found, DERs, a rerun; then the Viterbi kernel's own checks
     and times.  Returns the work directory and the speech frame count of
-    its label files (phase 13 reads them)."""
+    its label files (phase 11 reads them)."""
     d = temp_dir("lia_chip_smoke_diar_")
     x, ref, boots = tdiar.gen_conversation(np.random.default_rng(20260823))
     n = ref.shape[0]
@@ -1886,7 +1850,7 @@ def run_diarization(kernels, dev):
     return d, len(sp_idx)
 
 
-# -- phase 12: serving at full width -------------------------------------------
+# -- phase 10: serving at full width -------------------------------------------
 
 SERVE_TIMED_CALLS = 50
 ADAPT_TARGETS = 10
@@ -1928,7 +1892,7 @@ def synth_voice(rng, pitch, formants, seconds=AUDIO_SECONDS):
 
 
 def run_serving(gu_dir, gu_lists, kernels, dev) -> None:
-    """Phase 12: the server and client on phase 8's world and features,
+    """Phase 10: the server and client on phase 6's world and features,
     the audio path, SpkAdapt."""
     half = UTT_PER_SPK // 2
     spk = [f"spk{s:02d}" for s in range(N_TGT)]
@@ -1936,7 +1900,7 @@ def run_serving(gu_dir, gu_lists, kernels, dev) -> None:
     world = GmmDiag.load(world_path, device=dev)
     work = temp_dir("lia_chip_smoke_srv_")
     # the decision threshold a deployment would set from its dev trials:
-    # midway between phase 8's mean target and mean impostor LLR
+    # midway between phase 6's mean target and mean impostor LLR
     sc8, tgt8 = trial_scores(os.path.join(gu_dir, "main.nist"),
                              N_TGT * N_TGT * 5)
     threshold = 0.5 * float(sc8[tgt8].mean() + sc8[~tgt8].mean())
@@ -2089,7 +2053,7 @@ def run_serving(gu_dir, gu_lists, kernels, dev) -> None:
         cli_.close()
         srv.stop()
 
-    # SpkAdapt on 10 targets of phase 8: WMAP, without and with online ZNORM
+    # SpkAdapt on 10 targets of phase 6: WMAP, without and with online ZNORM
     tgt = spk[:ADAPT_TARGETS]
     tests = [f"{s}_u{j}" for s in tgt for j in (half, half + 1)]
     lists = {k: os.path.join(work, k) for k in
@@ -2146,7 +2110,7 @@ def run_serving(gu_dir, gu_lists, kernels, dev) -> None:
         kv["launches"] += got
 
 
-# -- phase 13: the GMM-supervector SVM system and the utility tools -----------
+# -- phase 11: the GMM-supervector SVM system and the utility tools -----------
 
 SVM_RANK = 40           # CovIntra's NAP rank
 SVM_BG = 1000           # synthetic background of the N = 1,001 kernel check
@@ -2175,8 +2139,8 @@ def latent_svm_problem(n: int, dev, d: int = 512):
 
 
 # SM cycles of the solver's chain (csrc/svm_dual.cu), an estimate from
-# its instructions and the latencies scripts/torch_small_kernels_probe.py
-# measures on the H100: a bisection round in one warp issues ~480
+# its instructions and the latencies measured on the H100 (PERF.md
+# section 6): a bisection round in one warp issues ~480
 # instructions (31 mids; 31 x 2 candidate terms of 4 FP instructions in
 # the FMA form of +-1 labels; the transpose-reduce's 31 shuffles, 62
 # selects and 31 adds; the ballot and the walk) and waits on ~260 cycles
@@ -2198,7 +2162,8 @@ def svm_bound(n: int, n_iter: int = 500, hz: float = 1.98e9) -> dict:
     the regime of ``tsvm.solve_plan``, at the SM clock ``hz``; a streaming
     matvec at the cluster's share of 64 bytes a cycle an SM from L2).
     The estimate is printed, not put in the kernels line: its cycle
-    counts are constants of earlier probe runs, not this run's."""
+    counts are constants measured once (PERF.md section 6), not by this
+    run."""
     t_bytes = 4 * (n * n + 3 * n) / HBM_BYTES_PER_S
     ops = ((tsvm.POWER_STEPS + 1 + n_iter) * 2 * n * n
            + (n_iter + 1) * tsvm.BISECTION_STEPS * 5 * n)
@@ -2377,10 +2342,10 @@ def principal_sin(a, b) -> float:
 
 
 def run_gmm_svm(gu_dir, gu_lists, diar_dir, diar_frames, kernels, dev):
-    """Phase 13: TrainTarget outputAdaptParam → CovIntra → NAPSV →
+    """Phase 11: TrainTarget outputAdaptParam → CovIntra → NAPSV →
     SvmTrain → SvmPredict, ModelToSv, TrainTarget NAP, ComputeTest nap and
     dotProduct, NormFeat featNAP, then every other utility tool once, on
-    phase 8's world, features, models and trials and phase 11's labels;
+    phase 6's world, features, models and trials and phase 9's labels;
     launches and device ms per tool; card-vs-CPU checks of the numeric
     tools; the SVM dual kernel against its plain loop."""
     d = temp_dir("lia_chip_smoke_svm_")
@@ -2728,7 +2693,7 @@ def run_gmm_svm(gu_dir, gu_lists, diar_dir, diar_frames, kernels, dev):
           f"dotProduct {eers['dot']:.2f} %")
 
 
-# -- phase 14: numThread sharding and the multi-process runtime --------------
+# -- phase 12: numThread sharding and the multi-process runtime --------------
 
 PAR_SHARDS = 4          # shards of the one card (numThread 4)
 PAR_TOL = 1e-3          # a sharded result against the serial one, of scale
@@ -2763,8 +2728,8 @@ def check_scaled(label, got, want, tol=PAR_TOL) -> float:
 
 
 def multihost_problems(outdir, x, w, ubm) -> None:
-    """tests/_torch_multihost_worker.py's inputs: phase 5's 1M frames and
-    phase 6's UBM for the EM stats, then the PLDA, TV, JFA and extraction
+    """tests/_torch_multihost_worker.py's inputs: phase 3's 1M frames and
+    phase 5's UBM for the EM stats, then the PLDA, TV, JFA and extraction
     problems of tests/_multihost_worker.py at its shapes and seeds, their
     random inits drawn here (numpy and torch's CPU generator)."""
     gen = torch.Generator().manual_seed(3)
@@ -2901,7 +2866,7 @@ def check_workers(procs, outdir, serial_k1, dev) -> dict:
 
 
 def run_parallel(xu, mask, workdir, gu_dir, gu_lists, kernels, dev):
-    """Phase 14: the sharded functions on meshes of shards of the one card
+    """Phase 12: the sharded functions on meshes of shards of the one card
     against their serial versions, TrainWorld and TotalVariability with
     numThread 4, and two processes on the card under gloo."""
     xf, wf = xu.reshape(-1, D), mask.reshape(-1)
@@ -2961,7 +2926,7 @@ def run_parallel(xu, mask, workdir, gu_dir, gu_lists, kernels, dev):
                 (got.llk[None], want.llk[None]))
     del got, want
 
-    # the TV E-step and extraction on phase 6's stats and T
+    # the TV E-step and extraction on phase 5's stats and T
     tv = TvModel.load(os.path.join(out, "TV.matx"), ubm)
     tv = tv.replace(ubm_means=torch.as_tensor(
         read_matrix_file(os.path.join(out, "TVmean.matx")).reshape(K, D),
@@ -2991,7 +2956,7 @@ def run_parallel(xu, mask, workdir, gu_dir, gu_lists, kernels, dev):
     check_scaled(f"sharded_estimate_w {PAR_SHARDS} x 1 (pcg_tol 0)", w_shd,
                  w_ser)
 
-    # JFA V and U iterations on phase 10's stats and subspaces
+    # JFA V and U iterations on phase 8's stats and subspaces
     world = GmmDiag.load(os.path.join(gu_dir, "wld.gmm"), device=dev)
     accs = os.path.join(gu_dir, "jfa_accs.npz")
     sess, _ = load_stats(accs, device=dev)
@@ -3021,7 +2986,7 @@ def run_parallel(xu, mask, workdir, gu_dir, gu_lists, kernels, dev):
     check_scaled("sharded_jfa_u_iteration x", x_shd, x_ser)
     del m_ser, m_shd, jmodel, jstats, sess
 
-    # PLDA EM and scoring on phase 9's normalised dev set and trials
+    # PLDA EM and scoring on phase 7's normalised dev set and trials
     norm = os.path.join(out, "norm")
     names = [f"spk{i // UTT_PER_SPK:02d}_u{i % UTT_PER_SPK}"
              for i in range(N_SPK * UTT_PER_SPK)]
@@ -3096,7 +3061,7 @@ def run_parallel(xu, mask, workdir, gu_dir, gu_lists, kernels, dev):
         llk[label] = float(em_stats_chunked(xf, wf, g).mean_llk())
     print(f"  parallel TrainWorld numThread {PAR_SHARDS} ({wall:.2f} s): "
           f"final UBM meanLLK {llk[f'numThread {PAR_SHARDS}']:.7f}, "
-          f"numThread 1 (phase 6) {llk['numThread 1']:.7f}")
+          f"numThread 1 (phase 5) {llk['numThread 1']:.7f}")
     check(abs(llk["numThread 1"] - llk[f"numThread {PAR_SHARDS}"]) <= 1e-4,
           "TrainWorld numThread 4 and 1 agree in meanLLK within 1e-4")
     dt = np.abs(t_4 - t_1)
@@ -3144,13 +3109,13 @@ def run_parallel(xu, mask, workdir, gu_dir, gu_lists, kernels, dev):
           f"{shown(compare)}")
 
 
-# -- phase 15: the oracle parity run -----------------------------------------
+# -- phase 13: the oracle parity run -----------------------------------------
 
 ORACLE_TOL = 1e-3       # per-trial LLR (absolute); i-vectors (of scale)
 
 
 def run_oracle_parity(kernels, dev) -> None:
-    """Phase 15: scripts/torch_oracle_parity.py at scale small on the
+    """Phase 13: scripts/torch_oracle_parity.py at scale small on the
     card: the port's CLI chain against the f64 oracle, stage by stage."""
     import torch_oracle_parity as top
     ck.reset_launch_counts()
@@ -3176,269 +3141,7 @@ def run_oracle_parity(kernels, dev) -> None:
         kv["launches"] += launches.get(kname, 0)
 
 
-# -- phase 16: every arithmetic of K1 and K2 at full width ---------------------
-
-SR_SEEDS = 64           # seeds of the stochastic-rounding bias check
-SR_MATCH = 0.5          # kernel-vs-plain over seed-to-seed distance, at most
-SR_ODD_T = 1999         # K2's odd utterance length (frame pairs split)
-
-
-def mode_rtols(mode) -> tuple[float, float]:
-    """(n, sums) budgets of an arithmetic against its plain version: the
-    default's (1e-4, 1e-3) where the stats product is three or six passes;
-    one rounding of p or xa·s to bf16 (one pass, either two-pass form,
-    stochastic rounding) can flip on an f32-level logit difference, so
-    2e-3 of scale there, n too unless it is the exact Σ p·s."""
-    if mode.stats in ("3", "6"):
-        return 1e-4, 1e-3
-    return (1e-4 if mode.nx else 2e-3), 2e-3
-
-
-def run_modes(kernels, dev) -> None:
-    """Phase 16: every arithmetic of K1 and K2 beyond the tiers against
-    its plain version at full width, timed, with its bound and its
-    occupancy error against float64 (the tiers' error printed too), and
-    the checks of stochastic rounding."""
-    import torch_sweep_bw as sweep_bw
-    import torch_sweep_fused as fused
-    x, w, gmm = fused.make_problem(dev)
-    xu = x.view(sweep_bw.S, sweep_bw.T, D)      # sweep_bw.make_problem's
-    wu = w.view(sweep_bw.S, sweep_bw.T)
-    xo, wo = x[:fused.NS], w[:fused.NS]
-    n64 = fused.f64_occupancy(xo, wo, gmm)
-    n64u = fused.f64_occupancy(xu[:sweep_bw.NS], wu[:sweep_bw.NS], gmm)
-    print(f"  modes: the sweeps' problem, {x.shape[0]} frames (K2 as "
-          f"{sweep_bw.S} x {sweep_bw.T}), K={K}, D={D}; float64 oracle on "
-          f"{fused.NS} frames and {sweep_bw.NS} utterances")
-    ck.reset_launch_counts()
-    for mode in ck.all_modes():
-        kw = mode.kwargs()
-        n_rtol_m, sum_rtol_m = mode_rtols(mode)
-        for kname in REPLACES:
-            name = entry(kname, mode.name)
-            if kname == "em_stats_fused":
-                err64 = fused.n_rel_err(ck.em_stats_fused(xo, wo, gmm,
-                                                          **kw).n, n64)
-            else:
-                err64 = fused.n_rel_err(ck.bw_stats_fused(
-                    xu[:sweep_bw.NS], wu[:sweep_bw.NS], gmm, **kw)[0], n64u)
-            kernels[name]["n_rel_err_f64"] = err64
-            if mode in ck.TIER_MODES:       # timed in phase 7
-                print(f"  {name}: n rel-err vs float64 {err64:.2e}")
-                continue
-            if kname == "em_stats_fused":
-                k_ms, p_ms, got, want = timed_pair(
-                    lambda: ck.em_stats_fused(x, w, gmm, **kw),
-                    lambda: ck.em_stats_reference(x, w, gmm, **kw))
-                err = check_stats(f"K1 {name}",
-                                  [("n", got.n, want.n, n_rtol_m),
-                                   ("sum_x", got.sum_x, want.sum_x,
-                                    sum_rtol_m),
-                                   ("sum_xx", got.sum_xx, want.sum_xx,
-                                    sum_rtol_m)],
-                                  (got.llk[None], want.llk[None]))
-                check(abs(float(got.count) - float(want.count))
-                      <= 1e-6 * float(want.count), f"K1 {name} count")
-                b_ms, b_by = passes_bound_ms(kname, mode.logit_passes,
-                                             mode.stat_passes, x.shape[0],
-                                             K, D)
-            else:
-                k_ms, p_ms, (n_k, f_k, l_k), (n_p, f_p, l_p) = timed_pair(
-                    lambda: ck.bw_stats_fused(xu, wu, gmm, **kw),
-                    lambda: ck.bw_stats_reference(xu, wu, gmm, **kw))
-                err = check_stats(f"K2 {name}",
-                                  [("n", n_k, n_p, n_rtol_m),
-                                   ("f", f_k, f_p, sum_rtol_m)], (l_k, l_p))
-                b_ms, b_by = passes_bound_ms(kname, mode.logit_passes,
-                                             mode.stat_passes, x.shape[0],
-                                             K, D, utterances=xu.shape[0])
-            kernels[name].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                 bound_by=b_by, max_abs_err=err)
-            print(f"  {name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-                  f"bound {b_ms:.3f} ms by {b_by} (bound / time = "
-                  f"{100 * b_ms / k_ms:.1f} %), n rel-err vs float64 "
-                  f"{err64:.2e}", flush=True)
-    check_sr(x, w, gmm, xu, wu, xo, wo, n64, fused.NS, dev)
-    for kname, kv in kernels.items():
-        if kname in ck.launch_counts:
-            kv["check_launches"] += ck.launch_counts[kname]
-
-
-def onehot_problem(dev, n: int, seed: int = 5):
-    """x (n, D), w (n,) and a GMM (K components) whose posteriors are
-    one-hot: component c has unit variances and the mean 20 times the bits
-    of c over the first log2(K) dimensions, frame f lies within 0.5 of the
-    mean of component f mod K, and one frame a component, drawn from the
-    whole range, has a weight in [0.5, 1.5) (the others 0).  Each frame's
-    other logits lie 190 (natural) below its own, so p is exactly 1 and 0:
-    every stats sum then has one nonzero term, bf16(p)·bf16(xa·s) = bf16(xa·w),
-    and is exact in any order of addition."""
-    rng = np.random.default_rng(seed)
-    bits = int(np.log2(K))
-    comp = np.arange(K)
-    means = np.zeros((K, D), np.float32)
-    means[:, :bits] = 20.0 * ((comp[:, None] >> np.arange(bits)) & 1)
-    f = np.arange(n)
-    x = (means[f % K] + rng.uniform(-0.5, 0.5, (n, D))).astype(np.float32)
-    w = np.zeros(n, np.float32)
-    w[comp + K * rng.integers(0, n // K, K)] = rng.uniform(0.5, 1.5, K)
-    return (torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev),
-            gmm_from_numpy(np.full(K, 1.0 / K), means, np.ones((K, D)), dev))
-
-
-def check_sr(x, w, gmm, xu, wu, xo, wo, n64, n_oracle, dev) -> None:
-    """Phase 16's checks of stochastic rounding (``"bf16sr"``) in the
-    kernels themselves: reruns and seeds; the same bits as the plain
-    version, to the digit where the sums are exact and by distance on the
-    sweeps' frames; the bias of the rounding against the deterministic
-    bf16 pass, kernel and plain; and a witness of the tensor cores' own
-    shift."""
-    kw = dict(stats_pass="bf16sr")
-    a = ck.em_stats_fused(x, w, gmm, **kw)
-    b = ck.em_stats_fused(x, w, gmm, **kw)
-    c = ck.em_stats_fused(x, w, gmm, seed=1, **kw)
-    check(all(torch.equal(getattr(a, f), getattr(b, f))
-              for f in ("n", "sum_x", "sum_xx", "llk")),
-          "K1 bf16sr: two calls with one seed equal to the digit")
-    check(not torch.equal(a.sum_x, c.sum_x), "K1 bf16sr: two seeds differ")
-    a2 = ck.bw_stats_fused(xu, wu, gmm, **kw)
-    b2 = ck.bw_stats_fused(xu, wu, gmm, **kw)
-    c2 = ck.bw_stats_fused(xu, wu, gmm, seed=1, **kw)
-    check(all(torch.equal(u, v) for u, v in zip(a2, b2)),
-          "K2 bf16sr: two calls with one seed equal to the digit")
-    check(not torch.equal(a2[1], c2[1]), "K2 bf16sr: two seeds differ")
-
-    # 1. exact sums: the kernel draws xa·s's bits of the plain version, to
-    #    the digit, on frames spread over the million (K1, K2, odd T)
-    xh, wh, gh = onehot_problem(dev, x.shape[0])
-    t_odd = xh.shape[0] // SR_ODD_T
-    xo2 = xh[:t_odd * SR_ODD_T].view(t_odd, SR_ODD_T, D)
-    wo2 = wh[:t_odd * SR_ODD_T].view(t_odd, SR_ODD_T)
-    xh2, wh2 = xh.view(xu.shape), wh.view(wu.shape)
-    res = {}
-    for sp in ("bf16", "bf16sr"):
-        kk = dict(stats_pass=sp, seed=7)
-        got = ck.em_stats_fused(xh, wh, gh, **kk)
-        want = ck.em_stats_reference(xh, wh, gh, **kk)
-        same = [torch.equal(getattr(got, f), getattr(want, f))
-                for f in ("n", "sum_x", "sum_xx")]
-        for label, (xk, wk) in (("K2", (xh2, wh2)),
-                                (f"K2 T={SR_ODD_T}", (xo2, wo2))):
-            same += [torch.equal(u, v) for u, v in zip(
-                ck.bw_stats_fused(xk, wk, gh, **kk)[:2],
-                ck.bw_stats_reference(xk, wk, gh, **kk)[:2])]
-        print(f"  modes: one-hot frames, {sp}: kernel equal to plain to the "
-              f"digit in K1 n/sum_x/sum_xx, K2 n/f, K2 T={SR_ODD_T} n/f: "
-              f"{same}")
-        check(all(same), f"{sp} on one-hot frames: every sum of K1 and K2 "
-              "equal to the plain version's to the digit")
-        res[sp] = got
-    check(not torch.equal(res["bf16sr"].sum_x, res["bf16"].sum_x),
-          "bf16sr on one-hot frames: other digits than round-to-nearest")
-
-    # 2. the oracle's frames: the kernel at seed 0 sits far closer to the
-    #    plain version at seed 0 than the plain version at seed 1 does (a
-    #    kernel keyed otherwise sits as far as another seed: ratio ~1); the
-    #    deterministic bf16 pass's distance beside it
-    def rms(u, v) -> float:
-        return float(torch.sqrt(torch.mean((u.double() - v.double()) ** 2)))
-
-    n_utt = xo.shape[0] // SR_ODD_T
-    cases = {
-        "K1": (lambda fn, **k: fn(xo, wo, gmm, **k), ck.em_stats_fused,
-               ck.em_stats_reference, ("n", "sum_x", "sum_xx")),
-        "K2": (lambda fn, **k: fn(xu[:16], wu[:16], gmm, **k),
-               ck.bw_stats_fused, ck.bw_stats_reference, (0, 1)),
-        f"K2 T={SR_ODD_T}": (
-            lambda fn, **k: fn(xo[:n_utt * SR_ODD_T].view(n_utt, SR_ODD_T, D),
-                               wo[:n_utt * SR_ODD_T].view(n_utt, SR_ODD_T),
-                               gmm, **k),
-            ck.bw_stats_fused, ck.bw_stats_reference, (0, 1))}
-    for label, (call, kern, plain, fields) in cases.items():
-        k0, p0, p1 = (call(kern, seed=0, **kw), call(plain, seed=0, **kw),
-                      call(plain, seed=1, **kw))
-        kb, pb = (call(kern, stats_pass="bf16"),
-                  call(plain, stats_pass="bf16"))
-
-        def get(st, f):
-            return getattr(st, f) if isinstance(f, str) else st[f]
-
-        for f in fields:
-            noise = rms(get(p0, f), get(p1, f))
-            r_sr = rms(get(k0, f), get(p0, f)) / noise
-            r_det = rms(get(kb, f), get(pb, f)) / noise
-            name = f if isinstance(f, str) else ("n", "f")[f]
-            print(f"  modes: {label} {name}: rms kernel - plain at one seed "
-                  f"over rms plain seed 0 - seed 1: bf16sr {r_sr:.3e}, "
-                  f"bf16 (deterministic) {r_det:.3e} (seed-to-seed rms "
-                  f"{noise:.3e})")
-            check(r_sr < SR_MATCH, f"{label} bf16sr {name}: the kernel draws "
-                  "the plain version's bits (distance ratio below "
-                  f"{SR_MATCH})")
-
-    # 3. the bias, mean over K of n - n64 on the oracle's frames, of the
-    #    kernel and its plain version; the rounding's own is read on the
-    #    plain versions (f32 products rounded to nearest), and the kernel's
-    #    bf16sr bias less its bf16 bias must match the plain versions'.
-    def bias(st) -> float:
-        return float((st.n.double() - n64).mean())
-
-    shift = {}
-    for label, kw2 in (("x3", {}), ("bf16nx", dict(stats_pass="bf16nx")),
-                       ("bf16", dict(stats_pass="bf16"))):
-        shift[label] = (bias(ck.em_stats_fused(xo, wo, gmm, **kw2)),
-                        bias(ck.em_stats_reference(xo, wo, gmm, **kw2)))
-    sr_k = np.array([bias(ck.em_stats_fused(xo, wo, gmm, seed=s, **kw))
-                     for s in range(SR_SEEDS)])
-    sr_p = np.array([bias(ck.em_stats_reference(xo, wo, gmm, seed=s, **kw))
-                     for s in range(SR_SEEDS)])
-    sem_k = float(sr_k.std(ddof=1) / np.sqrt(SR_SEEDS))
-    sem_p = float(sr_p.std(ddof=1) / np.sqrt(SR_SEEDS))
-    d_k = sr_k.mean() - shift["bf16"][0]
-    d_p = sr_p.mean() - shift["bf16"][1]
-    print(f"  modes: mean signed n error over K against float64 ({n_oracle} "
-          "frames), kernel / plain: " + "; ".join(
-              f"{k} {u:.3e} / {v:.3e}" for k, (u, v) in shift.items())
-          + f"; bf16sr over {SR_SEEDS} seeds {sr_k.mean():.3e} ± {sem_k:.3e}"
-          f" / {sr_p.mean():.3e} ± {sem_p:.3e} (standard errors; seed 0 "
-          f"{sr_k[0]:.3e} / {sr_p[0]:.3e})")
-    print(f"  modes: the kernels' accumulation shift (kernel - plain): " +
-          "; ".join(f"{k} {u - v:.3e}" for k, (u, v) in shift.items())
-          + f"; bf16sr {sr_k.mean() - sr_p.mean():.3e}; bf16sr less bf16: "
-          f"kernel {d_k:.3e}, plain {d_p:.3e}")
-    check(abs(sr_p.mean()) <= 4 * sem_p, "bf16sr (plain): the mean signed "
-          "occupancy error is within 4 standard errors of 0")
-    check(abs(sr_p.mean()) < abs(shift["bf16"][1]), "bf16sr (plain): its "
-          "mean signed occupancy error over the seeds is smaller in "
-          "magnitude than the deterministic bf16 pass's bias")
-    check(abs(d_k - d_p) <= 4 * np.hypot(sem_k, sem_p), "bf16sr (kernel): "
-          "its bias less the kernel's bf16 bias lies within 4 standard "
-          "errors of the same difference on the plain versions")
-
-    # 4. a witness of the shift: the plain bf16 pass's rounded operands
-    #    multiplied on the tensor cores by cuBLAS, and on the CUDA cores in
-    #    f32, against their float64 product
-    m1 = ck.check_mode(stats_pass="bf16")
-    pp, xsp, _ = ck._posteriors(xo[None], wo[None], ck.mode_params(gmm, m1),
-                                m1)
-    pb16, xb16 = pp[0].to(torch.bfloat16), xsp[0].to(torch.bfloat16)
-    exact = (pb16.double().T @ xb16.double())[:, 2 * D]
-    try:
-        tc = float((torch.mm(pb16.T, xb16, out_dtype=torch.float32)[:, 2 * D]
-                    .double() - exact).mean())
-        tc_txt = f"{tc:.3e}"
-    except (TypeError, RuntimeError) as e:
-        tc_txt = f"not available ({type(e).__name__})"
-    simt = float(((pb16.float().T @ xb16.float())[:, 2 * D].double()
-                  - exact).mean())
-    print(f"  modes: witness, mean over K of n - its float64 product on the "
-          f"plain bf16 pass's operands: cuBLAS bf16 on the tensor cores "
-          f"(torch.mm, out_dtype float32) {tc_txt}, f32 on the CUDA cores "
-          f"(TF32 {torch.backends.cuda.matmul.allow_tf32}) {simt:.3e}; the "
-          f"kernel's bf16 shift {shift['bf16'][0] - shift['bf16'][1]:.3e}")
-
-
-# -- phase 17: the record drivers --------------------------------------------
+# -- phase 14: the record drivers --------------------------------------------
 
 # the eer driver's full scale (corpus v3: K=2048, D=39, R=400, PLDA rank
 # 150, 300 held-out dev speakers x 10 sessions, 240 target trials) with
@@ -3459,7 +3162,7 @@ def check_scores(label, stats, n_trials) -> None:
 
 
 def run_milestones(kernels, dev) -> None:
-    """Phase 17: the record drivers of scripts/ through the port's tools
+    """Phase 14: the record drivers of scripts/ through the port's tools
     on the card — torch_milestone_eer at full width (default tier, one
     PLDA seed), torch_milestone_jfa at scale small, torch_milestone_plda
     (serial against 8 shards of the card), torch_milestone_adapt and
@@ -3626,109 +3329,16 @@ def main() -> int:
     print("native builds: " + ", ".join(p.name for p in host))
     phase("build", t0)
 
-    rng = np.random.default_rng(0)
+    # every arithmetic of K1 and K2; launches of the arithmetics beyond
+    # the tiers stay 0 unless a tool reaches one
     kernels = {entry(k, m.name): {"name": entry(k, m.name), "route": "cuda",
-                                  "source": SOURCE, "replaces": REPLACES[k]}
+                                  "source": SOURCE, "replaces": REPLACES[k],
+                                  "launches": 0, "check_launches": 0}
                for k in REPLACES for m in ck.all_modes()}
-    for m in ck.all_modes()[4:]:        # phase 16's arithmetics
-        for k in REPLACES:
-            kernels[entry(k, m.name)]["launches"] = 0
 
-    # 3. K1 vs its plain version, every tier: at the UBM's shape, at the
-    # energy VAD's (K=3, D=1), at one MAP client's (10,000 frames), and at
-    # the shapes phases 11 and 12 give it: a diarization state's MAP (the
-    # speech frames against the K=128, D=24 world, under a 0/1 state mask
-    # and under an all-zero one), an event TrainWorld (K=32, D=24) and the
-    # audio path (K=128, D=40: 19 cepstra + energy, with deltas)
+    # 3. the slice at full width
     t0 = time.perf_counter()
-    gmm = random_gmm(rng, K, D, dev)
-    for n, gk, gd, weights in (
-            (65536, K, D, "random"), (2000, 3, 1, "random"),
-            (10000, K, D, "random"),
-            (DIAR_STATE_FRAMES, DIAR_K_WORLD, DIAR_D, "mask"),
-            (DIAR_STATE_FRAMES, DIAR_K_WORLD, DIAR_D, "zero"),
-            (6000, DIAR_K_EVENT, DIAR_D, "random"),
-            (2048, AUDIO_K, 40, "random")):
-        g = gmm if gk == K else random_gmm(rng, gk, gd, dev)
-        x = torch.from_numpy(rng.standard_normal((n, gd), dtype=np.float32)
-                             ).to(dev)
-        w = state_weights(rng, n, weights, dev)
-        default_plain = ck.em_stats_reference(x, w, g)
-        other_plain = ck.em_stats_reference(x, w, g, stats_pass="bf16nx")
-        for tier, (cdt, sp) in TIERS.items():
-            ename = entry("em_stats_fused", tier)
-            label = f"K1 {ename} N={n} K={gk} D={gd} w={weights}"
-            got = ck.em_stats_fused(x, w, g, compute_dtype=cdt,
-                                    stats_pass=sp)
-            torch.cuda.synchronize()
-            want = ck.em_stats_reference(x, w, g, compute_dtype=cdt,
-                                         stats_pass=sp)
-            rs = sum_rtol(tier)
-            err = check_stats(label,
-                              [("n", got.n, want.n, n_rtol(tier)),
-                               ("sum_x", got.sum_x, want.sum_x, rs),
-                               ("sum_xx", got.sum_xx, want.sum_xx, rs)],
-                              (got.llk[None], want.llk[None]))
-            check(abs(float(got.count) - float(want.count))
-                  <= 1e-6 * float(want.count), f"{label} count")
-            if weights == "zero":
-                check(all(bool((t == 0).all()) for t in
-                          (got.n, got.sum_x, got.sum_xx, got.llk)),
-                      f"{label}: all-zero weights give all-zero stats")
-            else:
-                check_rounding(label, got.sum_x, want.sum_x,
-                               (default_plain if tier else other_plain
-                                ).sum_x)
-            again = ck.em_stats_fused(x, w, g, compute_dtype=cdt,
-                                      stats_pass=sp)
-            check(all(torch.equal(a, b) for a, b in zip(
-                (again.n, again.sum_x, again.sum_xx, again.llk),
-                (got.n, got.sum_x, got.sum_xx, got.llk))),
-                f"{label} rerun reproduces every digit")
-            kernels[ename]["max_abs_err"] = max(
-                kernels[ename].get("max_abs_err", 0.0), err)
-    phase("K1 vs plain", t0)
-
-    # 4. K2 vs its plain version, every tier
-    t0 = time.perf_counter()
-    worst = {tier: 0.0 for tier in TIERS}
-    for s, t in ((64, 2000), (8, 2060), (16, 61)):
-        xs = torch.from_numpy(rng.standard_normal((s, t, D),
-                                                  dtype=np.float32)).to(dev)
-        ms = ragged_mask(rng, s, t, dev)
-        f_default = ck.bw_stats_reference(xs, ms, gmm)[1]
-        f_other = ck.bw_stats_reference(xs, ms, gmm, stats_pass="bf16nx")[1]
-        for tier, (cdt, sp) in TIERS.items():
-            ename = entry("bw_stats_fused", tier)
-            n_k, f_k, l_k = ck.bw_stats_fused(xs, ms, gmm, compute_dtype=cdt,
-                                              stats_pass=sp)
-            torch.cuda.synchronize()
-            n_p, f_p, l_p = ck.bw_stats_reference(xs, ms, gmm,
-                                                  compute_dtype=cdt,
-                                                  stats_pass=sp)
-            worst[tier] = max(worst[tier], check_stats(
-                f"K2 {ename} S={s} T={t}",
-                [("n", n_k, n_p, n_rtol(tier)),
-                 ("f", f_k, f_p, sum_rtol(tier))],
-                (l_k, l_p)))
-            check(bool((n_k[-1] == 0).all() and (f_k[-1] == 0).all()),
-                  f"K2 {ename}: all-zero-weight utterance gives n = f = 0")
-            check_rounding(f"K2 {ename} S={s} T={t}", f_k, f_p,
-                           f_default if tier else f_other)
-            n2, f2, l2 = ck.bw_stats_fused(xs, ms, gmm, compute_dtype=cdt,
-                                           stats_pass=sp)
-            check(torch.equal(n2, n_k) and torch.equal(f2, f_k)
-                  and torch.equal(l2, l_k),
-                  f"K2 {ename} rerun reproduces every digit")
-    for tier in TIERS:
-        kernels[entry("bw_stats_fused", tier)]["max_abs_err"] = worst[tier]
-    check_launches = dict(ck.launch_counts)
-    del xs, ms, x, w, f_default, f_other, default_plain, other_plain
-    phase("K2 vs plain", t0)
-
-    # 5. the slice at full width
-    t0 = time.perf_counter()
-    xu, mask = corpus(rng, dev)
+    xu, mask = corpus(np.random.default_rng(0), dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     init = mixture_init(gen, xu.reshape(-1, D), mask.reshape(-1), K)
     tv_t = init_t(torch.Generator(device=dev).manual_seed(2), R, init,
@@ -3767,7 +3377,12 @@ def main() -> int:
     check(dw <= 1e-3 * wmax, "kernel and plain i-vectors agree")
     phase("slice", t0)
 
-    # 6. the CLI chain at full width, default tier and fastStats
+    # 4. K1 and K2 against their plain versions in every tier, timed
+    t0 = time.perf_counter()
+    run_tiers(xu, mask, ubm, kernels)
+    phase("tiers", t0)
+
+    # 5. the CLI chain at full width, default tier and fastStats
     t0 = time.perf_counter()
     lens = mask.sum(1).to(torch.int64).cpu().numpy()
     xu_np = xu.cpu().numpy()
@@ -3858,7 +3473,7 @@ def main() -> int:
               "5e-2 nats/frame")
     for tier in fm_runs:        # no tool passes fastMath to K2
         kernels[entry("bw_stats_fused", tier)]["launches"] = 0
-    for m in ck.all_modes()[4:]:    # no tool reaches phase 16's arithmetics
+    for m in ck.all_modes()[4:]:    # no tool reaches these arithmetics
         for kname in REPLACES:
             key = entry(kname, m.name)
             kernels[key]["launches"] = sum(
@@ -3876,141 +3491,49 @@ def main() -> int:
           "within 1e-2 nats/frame")
     phase("cli", t0)
 
-    # 7. timing at the slice's shapes, every tier; the timed calls' last
-    # outputs are held against each other at these shapes too
-    t0 = time.perf_counter()
-    ck.reset_launch_counts()
-    xf, wf = xu.reshape(-1, D), mask.reshape(-1)
-    timed = {}                  # entry name → (kernel's, plain version's F)
-    for tier, (cdt, sp) in TIERS.items():
-        ename = entry("em_stats_fused", tier)
-        k_ms, p_ms, got, want = timed_pair(
-            lambda: ck.em_stats_fused(xf, wf, ubm, compute_dtype=cdt,
-                                      stats_pass=sp),
-            lambda: ck.em_stats_reference(xf, wf, ubm, compute_dtype=cdt,
-                                          stats_pass=sp))
-        b_ms, b_by = bound_ms("em_stats_fused", tier, xf.shape[0], K, D)
-        kernels[ename].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                              bound_by=b_by)
-        rs = sum_rtol(tier)
-        err = check_stats(f"K1 {ename} N={xf.shape[0]}",
-                          [("n", got.n, want.n, n_rtol(tier)),
-                           ("sum_x", got.sum_x, want.sum_x, rs),
-                           ("sum_xx", got.sum_xx, want.sum_xx, rs)],
-                          (got.llk[None], want.llk[None]))
-        check(abs(float(got.count) - float(want.count))
-              <= 1e-6 * float(want.count), f"K1 {ename} count")
-        timed[ename] = (got.sum_x, want.sum_x)
-        kernels[ename]["max_abs_err"] = max(kernels[ename]["max_abs_err"],
-                                            err)
-        ename = entry("bw_stats_fused", tier)
-        k_ms, p_ms, (n_k, f_k, l_k), (n_p, f_p, l_p) = timed_pair(
-            lambda: ck.bw_stats_fused(xu, mask, ubm, compute_dtype=cdt,
-                                      stats_pass=sp),
-            lambda: ck.bw_stats_reference(xu, mask, ubm, compute_dtype=cdt,
-                                          stats_pass=sp))
-        b_ms, b_by = bound_ms("bw_stats_fused", tier, xf.shape[0], K, D,
-                              utterances=xu.shape[0])
-        kernels[ename].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                              bound_by=b_by)
-        err = check_stats(f"K2 {ename} S={xu.shape[0]} T={xu.shape[1]}",
-                          [("n", n_k, n_p, n_rtol(tier)),
-                           ("f", f_k, f_p, sum_rtol(tier))], (l_k, l_p))
-        timed[ename] = (f_k, f_p)
-        kernels[ename]["max_abs_err"] = max(kernels[ename]["max_abs_err"],
-                                            err)
-        del got, want, n_k, f_k, l_k, n_p, f_p, l_p
-    for kname in REPLACES:
-        for tier in TIERS:
-            other = entry(kname, "" if tier else "fastStats")
-            check_rounding(f"{entry(kname, tier)} N={xf.shape[0]}",
-                           *timed[entry(kname, tier)], timed[other][1])
-    del timed
-    # K1's default tier at a MAP client's shape, at the energy VAD's and
-    # at a diarization state's (a 0/1 mask over the speech frames)
-    small = {}
-    for label, n, gk, gd in (("map_client", 10000, K, D), ("vad", 2000, 3, 1),
-                             ("diar_state", DIAR_STATE_FRAMES, DIAR_K_WORLD,
-                              DIAR_D)):
-        g = ubm if gk == K else random_gmm(rng, gk, gd, dev)
-        xs_ = torch.from_numpy(rng.standard_normal((n, gd), dtype=np.float32)
-                               ).to(dev)
-        ws_ = (state_weights(rng, n, "mask", dev) if label == "diar_state"
-               else torch.ones(n, device=dev))
-        k_ms, p_ms, _, _ = timed_pair(
-            lambda: ck.em_stats_fused(xs_, ws_, g),
-            lambda: ck.em_stats_reference(xs_, ws_, g))
-        b_ms, b_by = bound_ms("em_stats_fused", "", n, gk, gd)
-        small[label] = {"n": n, "k": gk, "d": gd, "ms": k_ms,
-                        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
-        print(f"  em_stats_fused at the {label} shape (N={n}, K={gk}, "
-              f"D={gd}): kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
-              f"{b_ms:.2e} ms by {b_by}")
-    kernels["em_stats_fused"]["shapes"] = small
-    for kname, kv in kernels.items():
-        # launches made to hold a kernel against its plain version
-        # (phases 3, 4 and 7), apart from the main paths' "launches"
-        kv["check_launches"] = (check_launches[kname]
-                                + ck.launch_counts[kname])
-        kv["library_ms"] = None
-        if "ms" not in kv:      # timed in phase 16
-            continue
-        print(f"  {kname}: kernel {kv['ms']:.3f} ms, plain "
-              f"{kv['plain_ms']:.3f} ms, bound {kv['bound_ms']:.3f} ms by "
-              f"{kv['bound_by']} (bound / time = "
-              f"{100 * kv['bound_ms'] / kv['ms']:.1f} %) "
-              f"(N={xf.shape[0]} frames, K={K}, D={D}; K2 as "
-              f"{N_SPK * UTT_PER_SPK} x {T_UTT})")
-    phase("timing", t0)
-
-    # 8. the GMM-UBM system of configs 1 and 2 at full width
+    # 6. the GMM-UBM system of configs 1 and 2 at full width
     t0 = time.perf_counter()
     gu_dir, gu_lists, raw_eer = run_gmm_ubm(kernels, dev)
     phase("gmm-ubm", t0)
 
-    # 9. the i-vector back end of configs 3 and 5, on phase 6's chain
+    # 7. the i-vector back end of configs 3 and 5, on phase 5's chain
     t0 = time.perf_counter()
     run_backend(workdir, lists, kernels, dev)
     phase("backend", t0)
 
-    # 10. the JFA system of config 4, on phase 8's features and models
+    # 8. the JFA system of config 4, on phase 6's features and models
     t0 = time.perf_counter()
     run_jfa(gu_dir, gu_lists, raw_eer, kernels, dev)
     phase("jfa", t0)
 
-    # 11. diarization at the milestone shape, and the Viterbi kernel
+    # 9. diarization at the milestone shape, and the Viterbi kernel
     t0 = time.perf_counter()
     diar_dir, diar_frames = run_diarization(kernels, dev)
     phase("diar", t0)
 
-    # 12. the serving API at full width, the audio path, SpkAdapt
+    # 10. the serving API at full width, the audio path, SpkAdapt
     t0 = time.perf_counter()
     run_serving(gu_dir, gu_lists, kernels, dev)
     phase("serving", t0)
 
-    # 13. the GMM-supervector SVM system and the other utility tools, on
-    # phase 8's world, features, models and trials; the SVM dual kernel
+    # 11. the GMM-supervector SVM system and the other utility tools, on
+    # phase 6's world, features, models and trials; the SVM dual kernel
     t0 = time.perf_counter()
     run_gmm_svm(gu_dir, gu_lists, diar_dir, diar_frames, kernels, dev)
     phase("gmm-svm", t0)
 
-    # 14. numThread: meshes of shards of the card against the serial
+    # 12. numThread: meshes of shards of the card against the serial
     # functions, the tools with numThread 4, two processes under gloo
     t0 = time.perf_counter()
     run_parallel(xu, mask, workdir, gu_dir, gu_lists, kernels, dev)
     phase("parallel", t0)
 
-    # 15. the port's chain against the f64 oracle at scale small
+    # 13. the port's chain against the f64 oracle at scale small
     t0 = time.perf_counter()
     run_oracle_parity(kernels, dev)
     phase("oracle", t0)
 
-    # 16. every other arithmetic of K1 and K2 at full width
-    t0 = time.perf_counter()
-    run_modes(kernels, dev)
-    phase("modes", t0)
-
-    # 17. the record drivers: eer at full width, jfa, plda, adapt, audio
+    # 14. the record drivers: eer at full width, jfa, plda, adapt, audio
     t0 = time.perf_counter()
     run_milestones(kernels, dev)
     phase("milestones", t0)

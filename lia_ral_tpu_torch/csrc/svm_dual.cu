@@ -68,8 +68,8 @@
 //   and each block streams its rows through a two-stage cp.async ring of
 //   column tiles, the next matvec's first tiles loading during the
 //   projection.  One SM's bandwidth to L2 / HBM becomes the cluster's.
-// The chain of one round (N <= 64, one warp, SM cycles; latencies from
-// scripts/torch_small_kernels_probe.py on the H100): ~480 instructions
+// The chain of one round (N <= 64, one warp, SM cycles; latencies
+// measured on the H100, PERF.md section 6): ~480 instructions
 // issued in order (31 mids; 62 candidate terms of 4 FP instructions in
 // the FMA form of +-1 labels, 6 otherwise; the transpose-reduce's 31
 // shuffles, 62 selects, 31 adds; the ballot; the walk) and ~260 cycles of
@@ -394,7 +394,6 @@ svm_dual_kernel(const Params prm) {
 
     const int n = prm.n;
     const long long prob = blockIdx.x / prm.cs;
-    // probe: kernel begins
     const int row0 = x.rank * prm.rows;
     const int rows_here = max(0, min(prm.rows, n - row0));
     const float* kp = prm.k + prob * n * (long long)n;
@@ -531,17 +530,14 @@ svm_dual_kernel(const Params prm) {
 #pragma unroll
         for (int e = 0; e < 2; ++e)
             mom[e] = __fadd_rn(al[e], __fmul_rn(f, __fsub_rn(al[e], pr[e])));
-        // probe: step begins
         publish(mom);
         matvec(s);
-        // probe: matvec ends
 #pragma unroll
         for (int e = 0; e < 2; ++e)
             a[e] = own[e] ? __fadd_rn(mom[e],
                                       __fmul_rn(lr_, __fsub_rn(1.f, s[e])))
                           : 0.f;
         const float lam = project_lam(a);
-        // probe: projection ends
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
             pr[e] = al[e];
@@ -557,7 +553,6 @@ svm_dual_kernel(const Params prm) {
                 clip(__fsub_rn(al[e], __fmul_rn(lam, ys[e])), cs[e]);
     if (!prm.resident) copy_wait<0>();
     if (x.cs > 1) cg::this_cluster().sync();   // no block leaves early
-    // probe: kernel ends
 }
 
 }  // namespace

@@ -24,18 +24,16 @@
 // the lanes exchange their deltas, and lane j takes the maximum of the
 // SP candidates delta[i] + lt[i][j] (SP = S up to 8, else S rounded up to
 // 16 or 32; the padding candidates are -inf) by a fmaxf tree and adds its
-// emission.  Latencies measured on the H100 by
-// scripts/torch_small_kernels_probe.py: SHFL.IDX 26 SM cycles, LDS 29, a
-// warp's STS + __syncwarp + LDS 28, FADD/FFMA and FMNMX 4.  So the chain
-// of a step is one exchange, an add, ceil(log2 SP) levels of fmaxf and
-// an add: ~49 cycles at S = 5.
+// emission.  Latencies measured on the H100 (PERF.md, section 6):
+// SHFL.IDX 26 SM cycles, LDS 29, a warp's STS + __syncwarp + LDS 28,
+// FADD/FFMA and FMNMX 4.  So the chain of a step is one exchange, an
+// add, ceil(log2 SP) levels of fmaxf and an add: ~49 cycles at S = 5.
 //
-// The design of PRs 6-9 took 258 cycles a step (clock64 probe, same
-// script): a compare-and-select tournament carried value and index on
-// the chain (FSETP then FSEL a level), and the step held a branch round
-// its back-pointer store (a reconvergence barrier), a 64-bit index and
-// frame guard, and a reload of S from the constant bank; no local memory.
-// This design takes 78 (PERF.md has the steps between); the ~29 cycles
+// A compare-and-select tournament that carries value and index on the
+// chain (FSETP then FSEL a level), with a branch round the back-pointer
+// store (a reconvergence barrier), a 64-bit index and frame guard and a
+// reload of S from the constant bank, took 258 cycles a step (clock64);
+// this design takes 78 (PERF.md has the steps between); the ~29 cycles
 // above the chain's estimate are not attributed yet.
 //
 // - Forward (warp 0): per step one store of delta[j] into one of two
@@ -179,7 +177,6 @@ viterbi_kernel(const float* __restrict__ em, const float* __restrict__ lt,
     __shared__ float4 xch4[16];               // the deltas' exchange
     float* xch = reinterpret_cast<float*>(xch4);
     const int tid = threadIdx.x;
-    // probe: kernel begins
     if (tid >= 32)                 // the idle warps, during the forward
         for (int x = tid - 32; x < 32 * 32; x += NT - 32) {
             const int k = x >> 5, i = x & 31;
@@ -239,7 +236,6 @@ viterbi_kernel(const float* __restrict__ em, const float* __restrict__ lt,
             path[N - 1] = last;
         }
     }
-    // probe: forward ends
     __syncthreads();               // the deltas and s_last are visible
 
     // back pointers from the deltas, rows spread over the block: row r
@@ -308,7 +304,6 @@ viterbi_kernel(const float* __restrict__ em, const float* __restrict__ lt,
         path[r] = state;
         state = *bp_at(sbp, gbp, r * S + state);
     }
-    // probe: kernel ends
 }
 
 template <int SP>

@@ -25,7 +25,7 @@ and handed to ReSegmentation as its initial segmentation.
 
 Every TrainWorld starts from a numpy-made init (``init_gmm`` of
 torch_milestone_eer, ``--seed``), so the card and the CPU start alike;
-chip_smoke.py phase 11 trains from the same inits.
+chip_smoke.py phase 9 trains from the same inits.
 
 Usage: python scripts/torch_milestone_diar.py [--device cuda|cpu]
            [--workdir D] [--seed N] [--out FILE]

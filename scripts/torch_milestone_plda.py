@@ -9,7 +9,7 @@ the same order): once serial (``numThread 1``) and once with
 models over a ("data",) mesh of 8 shards (PldaTools.cpp:2647's pthread
 pool).  The JAX run made its 8 devices as virtual CPU devices; here the
 mesh is 8 shards of the one device (``parallel.mesh.visible_devices``
-patched, as chip_smoke.py phase 14 does).  It asserts that the sharded
+patched, as chip_smoke.py phase 12 does).  It asserts that the sharded
 scores equal the serial ones within 1e-3 of their scale and reports the
 EER and minDCF.  PLDA's F and G start from numpy draws of ``--seed``.
 

@@ -12,14 +12,13 @@ start before the last one ended), then every mode K2 takes
 utterance's frames, so the JAX sweep's block rows have no counterpart.
 Each row times the kernel with CUDA events (median of 3 after a warm-up
 call) and gives max |n - n64| / (n64 + 1e-9) over the first 16
-utterances against the float64 oracle.  The plain version of each mode
-(``bw_stats_reference``) is timed beside its kernel by ``chip_smoke.py``
-phase 16.
+utterances against the float64 oracle.  ``chip_smoke.py`` times the
+plain version (``bw_stats_reference``) of each tier beside its kernel.
 
     python3 scripts/torch_sweep_bw.py [--trace DIR]
 
 Needs a CUDA card; prints the card's name and power limit first.
-Import-safe: ``chip_smoke.py`` calls ``make_problem``.
+Run alone; importing it runs nothing.
 """
 
 from __future__ import annotations

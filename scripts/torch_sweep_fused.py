@@ -17,8 +17,7 @@ the kernels as information: it is not a kernel of the port.
 
 Needs a CUDA card; prints the card's name and power limit first.
 ``--trace DIR`` writes a torch.profiler trace with one named span a row.
-Import-safe: ``chip_smoke.py`` calls ``make_problem``, ``f64_occupancy``,
-``n_rel_err`` and ``timed``.
+Run alone; importing it runs nothing.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """One of N coordinated processes of the port's multi-process runtime
-(tests/test_torch_multihost.py on the CPU; chip_smoke.py phase 14 on one
+(tests/test_torch_multihost.py on the CPU; chip_smoke.py phase 12 on one
 card, two ranks sharing it).
 
 Usage: python _torch_multihost_worker.py <host:port> <num_procs> <pid>

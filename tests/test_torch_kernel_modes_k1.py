@@ -29,6 +29,7 @@ import jax.numpy as jnp
 from lia_ral_tpu.gmm.pallas_kernels import _fast_exp2 as jfast_exp2
 from lia_ral_tpu.gmm.pallas_kernels import em_stats_fused as jem_fused
 
+from lia_ral_tpu_torch.convert import gmm_from_numpy
 from lia_ral_tpu_torch.gmm import cuda_kernels as ck
 
 from _torch_parity import both_gmms, np_of
@@ -378,3 +379,30 @@ def test_sr_result_does_not_depend_on_chunk_and_follows_its_seed(rng):
     for f in ("n", "sum_x", "sum_xx"):
         _assert_scaled(getattr(a, f), getattr(det, f), 2e-3, f)
     assert float(a.llk) == float(det.llk)
+
+
+def test_sr_occupancy_bias_over_seeds_is_below_the_bf16_pass():
+    """On the sweeps' kind of problem (standard-normal frames of weight 1,
+    standard-normal means, inverse variances in [0.5, 1.5), weights 1/K;
+    here K=1024, D=39 and 1,024 frames), the plain version's mean signed
+    occupancy error over K against float64, averaged over 64 seeds of
+    ``"bf16sr"``, lies within 4 standard errors of 0 and is smaller in
+    magnitude than the deterministic bf16 pass's (round to nearest)."""
+    rng = np.random.default_rng(0)
+    n, k, d, seeds = 1024, 1024, 39, 64
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    means = rng.standard_normal((k, d)).astype(np.float32)
+    cov_inv = (rng.random((k, d)) + 0.5).astype(np.float32)
+    tg = gmm_from_numpy(np.full(k, 1.0 / k, np.float32), means, cov_inv)
+    w = np.ones(n, np.float32)
+    n64 = _f64_stats(x, w, tg)[0]
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+
+    def bias(**kw):
+        return float(np.mean(np_of(ck.em_stats_reference(xt, wt, tg, **kw).n)
+                             .astype(np.float64) - n64))
+
+    sr = np.array([bias(stats_pass="bf16sr", seed=s) for s in range(seeds)])
+    sem = sr.std(ddof=1) / np.sqrt(seeds)
+    assert abs(sr.mean()) <= 4 * sem
+    assert abs(sr.mean()) < abs(bias(stats_pass="bf16"))

@@ -2,7 +2,7 @@
 CPU at a cut corpus: native/oracle.cpp is built (g++, the Makefile's
 flags) into a temporary directory, the port's CLI chain runs with
 ``torchDevice cpu``, and the stage comparisons hold the bounds of
-chip_smoke.py phase 15: per-trial top-10 LLR within 1e-3 of the f64
+chip_smoke.py phase 13: per-trial top-10 LLR within 1e-3 of the f64
 oracle's from the same models, i-vectors within 1e-3 of the oracle's
 scale.  The EER deltas are printed (target 0.0), not bounded.
 """
