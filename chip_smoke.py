@@ -1536,9 +1536,9 @@ EXCHANGE_CYCLES, ALU_CYCLES = 29, 4
 
 def viterbi_chain_cycles(s: int) -> int:
     """Cycles of one step's dependent chain in csrc/viterbi.cu: the
-    deltas' exchange, an add, ceil(log2 SP) levels of fmaxf, the
-    emission's add."""
-    sp = s if s <= 8 else (16 if s <= 16 else 32)
+    deltas' exchange, an add, ceil(log2 SP) levels of fmaxf over the
+    instance's SP candidates, the emission's add."""
+    sp = seg_hmm.instance(s)
     return EXCHANGE_CYCLES + ALU_CYCLES * (2 + math.ceil(math.log2(sp)))
 
 
@@ -1555,16 +1555,19 @@ def check_viterbi(dev):
     """The Viterbi kernel against the plain loop, path for path, at the
     diarization shape, at the smallest shape, with inactive states, on a
     60,000-frame decode, at every kernel instance (S = 1, 2, 3, 5, 8, 9,
-    16, 17, 32) at the edges of the ring's 64-step chunks and of the
-    backtrace's 256 chunks, and where the back pointers fill the shared
-    memory exactly and overflow it into device memory; timed at N=30,000
-    and N=60,000 (S=5), with ns and SM cycles a step beside the chain's
-    estimate.  Returns the kernels-line entry (without the launch
-    counts)."""
+    12, 16, 17, 20, 24, 28, 32) at the edges of the 64-row units and of
+    the tail's 256 threads; timed at N=30,000 and N=60,000 (S=5) and at
+    the diarization cell's shape (N = 300,000, S = 24, 13 states active,
+    log densities), each timed decode held against the plain loop, with
+    ns and SM cycles a step beside the chain's estimate.  Returns the
+    kernels-line entry (without the launch counts)."""
     rng = np.random.default_rng(7)
 
-    def case(n, s, active=None):
+    def case(n, s, active=None, density=False):
+        # density: negative, as the diarization's log densities are
         em = (rng.standard_normal((n, s)) * 3).astype(np.float32)
+        if density:
+            em = -np.abs(em) - 20
         t = np.full((s, s), 1e-30)
         a = s if active is None else active
         t[:a, :a] = seg_hmm.compute_transitions(a)
@@ -1572,11 +1575,12 @@ def check_viterbi(dev):
         return (torch.from_numpy(em).to(dev),
                 torch.log(torch.from_numpy(t.astype(np.float32))).to(dev))
 
-    full = seg_hmm.BP_SHARED_BYTES // 5 + 1
     shapes = [(30000, 5, None), (1, 1, None), (30000, 5, 3), (2, 32, None),
-              (1025, 2, None), (full, 5, None), (full + 1, 5, None)]
-    shapes += [(n, s, None) for s in (1, 2, 3, 5, 8, 9, 16, 17, 32)
-               for n in (65, 257, 258)]
+              (1025, 2, None), (256 * 64 + 1, 5, None),
+              (256 * 64 + 2, 5, None)]
+    shapes += [(n, s, None)
+               for s in (1, 2, 3, 5, 8, 9, 12, 16, 17, 20, 24, 28, 32)
+               for n in (64, 65, 66, 257)]
     mismatches = 0
     for n, s, active in shapes:
         em, lt = case(n, s, active)
@@ -1594,13 +1598,14 @@ def check_viterbi(dev):
           f"{mismatches} states differ")
     check(mismatches == 0, "viterbi_cuda equals the plain loop exactly")
     times = {}
-    for n in (30000, 60000):
-        em, lt = case(n, 5)
+    for n, s, active in ((30000, 5, None), (60000, 5, None),
+                         (300000, 24, 13)):
+        em, lt = case(n, s, active, density=active is not None)
         if n == 30000:
             k_ms, p_ms, got, want = timed_pair(
                 lambda: seg_hmm.viterbi_cuda(em, lt),
                 lambda: seg_hmm.viterbi_reference(em, lt))
-        else:                  # the long decode: the kernel alone timed
+        else:                  # the long decodes: the kernel alone timed
             seg_hmm.viterbi_cuda(em, lt)
             k_ms = statistics.median(
                 cuda_ms(lambda: seg_hmm.viterbi_cuda(em, lt))
@@ -1609,13 +1614,16 @@ def check_viterbi(dev):
             got = seg_hmm.viterbi_cuda(em, lt)
             want = seg_hmm.viterbi_reference(em.cpu(), lt.cpu()).to(dev)
         hz = sm_clock_hz()
-        check(torch.equal(got, want), f"viterbi N={n} timed paths equal")
-        b_ms, b_by = viterbi_bound(n, 5)
-        chain = viterbi_chain_cycles(5)
+        check(torch.equal(got, want), f"viterbi N={n} S={s} timed paths equal")
+        if active:
+            check(int(got.max()) < active, "viterbi stays in active states")
+        b_ms, b_by = viterbi_bound(n, s)
+        chain = viterbi_chain_cycles(s)
         chain_ms = 1e3 * chain * (n - 1) / hz
-        times[n] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                    "bound_by": b_by}
-        print(f"  viterbi N={n} S=5: kernel {k_ms:.3f} ms "
+        times[(n, s)] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                         "bound_by": b_by,
+                         "cycles_per_step": 1e-3 * k_ms * hz / n}
+        print(f"  viterbi N={n} S={s}: kernel {k_ms:.3f} ms "
               f"({1e6 * k_ms / n:.1f} ns, {1e-3 * k_ms * hz / n:.1f} SM "
               f"cycles a step at {hz / 1e6:.0f} MHz), plain loop "
               + (f"{p_ms:.1f} ms" if p_ms else "not timed")
@@ -1624,8 +1632,10 @@ def check_viterbi(dev):
     return {"name": "viterbi", "route": "cuda", "source": VITERBI_SOURCE,
             "replaces": "lia_ral_tpu/seg/hmm.py:71 (lax.scan; no TPU "
                         "kernel)",
-            "max_abs_err": float(mismatches), **times[30000],
-            "library_ms": None, "shapes": {"long_decode": times[60000]}}
+            "max_abs_err": float(mismatches), **times[(30000, 5)],
+            "library_ms": None,
+            "shapes": {"long_decode": times[(60000, 5)],
+                       "diar_cell": times[(300000, 24)]}}
 
 
 def run_diarization(kernels, dev):

@@ -130,9 +130,11 @@ def _bind(name: str, lib) -> None:
                                                    i, i, i, p, p, p, p]
         lib.lia_em_stats_grouped_wgmma.restype = i
     elif name == "viterbi":
-        lib.lia_viterbi.argtypes = [p, p, ll, i, f, p, p, p, p]
+        # em, lt, N, S, log S; deltas, back pointer, unit map and tail
+        # scratch; path; the stream
+        lib.lia_viterbi.argtypes = [p, p, ll, i, f, p, p, p, p, p, p]
         lib.lia_viterbi.restype = i
-        lib.lia_viterbi_shared_bytes.argtypes = []
+        lib.lia_viterbi_shared_bytes.argtypes = [i]
         lib.lia_viterbi_shared_bytes.restype = i
     else:
         # k, y, c, alpha, Q scratch; B, N, n_iter; the plan: cluster,

@@ -7,8 +7,9 @@ states = GMMs + transition matrix) and the ALIZE ViterbiAccum consumed by
 GMM pass over the stacked states; the frame-sequential Viterbi recursion
 is a hand-written CUDA kernel for CUDA tensors (``viterbi_cuda``,
 ``csrc/viterbi.cu``: one warp runs the recursion near its dependent
-chain, the whole block derives the back pointers from the stored deltas
-and backtraces by composing chunk maps;
+chain while six other warps of the block derive the back pointers from
+the stored deltas and compose the backtrace's unit maps, so a decode
+ends a short tail after its forward;
 ``viterbi_plan`` gives its layout) and a plain loop for CPU ones
 (``viterbi_reference``).  In the JAX package the recursion is a
 ``lax.scan`` that XLA compiles, so the kernel replaces no TPU kernel; it
@@ -31,54 +32,83 @@ import torch
 from ..gmm.kernels import weighted_logdens
 from ..gmm.model import GmmDiag
 from ..gmm.scoring import stack_gmms
+from ..utils.logging import count, recording
 
 MAX_STATES = 32                 # one warp holds a step of the recursion
 launch_counts = {"viterbi": 0}
 
 # the kernel's layout (csrc/viterbi.cu): one block of 256 threads; a ring
-# of three 64-step slots of emissions (sized for 32 states); the 256
-# chunk maps of 32 states and their top states, in bytes; the back
-# pointers' bytes that shared memory holds beside them.  A copy for
-# planning without a card: on the card the wrapper takes the split from
-# the library (lia_viterbi_shared_bytes)
+# of three 64-step slots of emissions; six consumer warps, each holding
+# a unit of 64 rows of deltas (at a stride of SP rounded up to 4), its
+# back pointers (64 x 32 bytes) and its paths (32 x 64 bytes); the 256
+# threads' maps of 32 states and their top states, in bytes.  A copy for
+# planning without a card: the library gives its own figure
+# (lia_viterbi_shared_bytes), which the card tests hold against this one
 VITERBI_THREADS = 256
 RING_STEPS, RING_SLOTS = 64, 3
-BP_SHARED_BYTES = (232_448 - 1024 - RING_SLOTS * RING_STEPS * 32 * 4
-                   - VITERBI_THREADS * 32 - VITERBI_THREADS)
+UNIT_ROWS = RING_STEPS          # back pointer rows of a unit
+UNIT_MAP_BYTES = 32
+CONSUMER_WARPS = 6
+GATHER_UNITS = 16               # units a tail warp writes a step
+
+
+def instance(s: int) -> int:
+    """The kernel instance (SP) that decodes S states: S up to 8, else S
+    rounded up to a multiple of 4 (12, 16, ..., 32)."""
+    return s if s <= 8 else -(-s // 4) * 4
+
+
+def shared_bytes(s: int) -> int:
+    """The dynamic shared memory of S's instance, in bytes."""
+    sp = instance(s)
+    ds = -(-sp // 4) * 4
+    return (RING_SLOTS * RING_STEPS * sp * 4
+            + CONSUMER_WARPS * UNIT_ROWS * (ds * 4 + 2 * 32)
+            + VITERBI_THREADS * 33)
 
 
 @dataclasses.dataclass(frozen=True)
 class ViterbiPlan:
     """How ``csrc/viterbi.cu`` decodes N frames of S states: the chain
     warp's ``chunks`` ring chunks of ``RING_STEPS`` steps (the last
-    ``tail_steps`` long), its deltas' device scratch (``delta_floats``:
-    N·S and 32 for the idle lanes); ``backtrace_rows`` rows of back
-    pointers a thread of the backtrace (the N − 1 rows in
-    ``VITERBI_THREADS`` contiguous chunks); the back pointers' bytes in
-    shared memory and in device memory."""
+    ``tail_steps`` long), each published to the consumers when done; its
+    deltas' device scratch (``delta_floats``: N·S and 32 for the idle
+    lanes); the N − 1 back pointer rows in ``units`` units of
+    ``UNIT_ROWS``, whose back pointers stay in shared memory, each unit's
+    path from every top state in device scratch (``table_bytes``: S·64 a
+    unit), and its map and top state (``map_bytes``: 33 a unit and 16 for
+    the gather's last 16-byte read); the tail's threads compose
+    ``backtrace_units`` unit maps each, and its warps write at most
+    ``backtrace_rows`` rows of path each, ``GATHER_UNITS`` units a step."""
     chunks: int
     tail_steps: int
     delta_floats: int
+    units: int
+    table_bytes: int
+    map_bytes: int
+    backtrace_units: int
     backtrace_rows: int
-    shared_bp_bytes: int
-    device_bp_bytes: int
 
 
-def viterbi_plan(n: int, s: int, bp_shared: int = BP_SHARED_BYTES
-                 ) -> ViterbiPlan:
+def viterbi_plan(n: int, s: int) -> ViterbiPlan:
     """The kernel's layout for N frames and S states (plain arithmetic,
-    the kernel's own), with ``bp_shared`` bytes of back pointers in shared
-    memory.  The kernel's indices are 32-bit and the largest it forms is
-    (N + 127)·S (its emission ring reads up to two chunks ahead), so it
-    takes (N + 128)·S + 32 < 2^31."""
+    the kernel's own).  The kernel's indices are 32-bit and the largest it
+    forms is (N + 127)·S (its emission ring reads up to two chunks ahead),
+    so it takes (N + 128)·S + 32 < 2^31."""
     if n < 1 or not 1 <= s <= MAX_STATES or (n + 128) * s + 32 >= 2 ** 31:
         raise ValueError(f"viterbi: N = {n}, S = {s} outside N >= 1, "
                          f"1 <= S <= {MAX_STATES}, (N + 128)·S + 32 < 2^31")
     chunks = -(-n // RING_STEPS)
-    bp = (n - 1) * s
+    rows = n - 1
+    units = -(-rows // UNIT_ROWS)
+    steps = -(-units // GATHER_UNITS)
+    warps = VITERBI_THREADS // 32
     return ViterbiPlan(chunks, n - (chunks - 1) * RING_STEPS, n * s + 32,
-                       -(-(n - 1) // VITERBI_THREADS),
-                       min(bp, bp_shared), max(bp - bp_shared, 0))
+                       units, units * s * UNIT_ROWS,
+                       units * (UNIT_MAP_BYTES + 1) + 16,
+                       -(-units // VITERBI_THREADS),
+                       min(-(-steps // warps) * GATHER_UNITS * UNIT_ROWS,
+                           rows))
 
 
 def reset_launch_counts() -> None:
@@ -188,7 +218,11 @@ def viterbi_cuda(emissions: torch.Tensor,
     """The CUDA kernel of ``csrc/viterbi.cu``: the same path as
     ``viterbi_reference``, state for state, in one launch of one block
     (layout: ``viterbi_plan``).  emissions (N, S) and log_trans (S, S):
-    contiguous f32 CUDA tensors, S ≤ 32, (N + 128)·S + 32 < 2^31."""
+    contiguous f32 CUDA tensors, S ≤ 32, (N + 128)·S + 32 < 2^31.  While
+    a profiler records it counts the back pointer rows
+    (``lia.seg.viterbi_bp_rows``, N − 1) and those the kernel had not
+    derived when its forward's last step was stored
+    (``lia.seg.viterbi_tail_rows``, read back from the card)."""
     for label, t in (("emissions", emissions), ("log_trans", log_trans)):
         if t.device.type != "cuda":
             raise ValueError(f"viterbi_cuda: {label} on {t.device} has no "
@@ -216,22 +250,29 @@ def viterbi_cuda(emissions: torch.Tensor,
 
     lib = library("viterbi")
     dev = emissions.device
-    # the forward's deltas, and the back pointers past the shared
-    # memory's share (the library's own figure)
-    plan = viterbi_plan(n, s, lib.lia_viterbi_shared_bytes())
+    # the forward's deltas, the units' path tables, their maps and top
+    # states, and the tail's count
+    plan = viterbi_plan(n, s)
     deltas = torch.empty((plan.delta_floats,), dtype=torch.float32,
                          device=dev)
-    back = torch.empty((max(plan.device_bp_bytes, 1),), dtype=torch.uint8,
+    table = torch.empty((max(plan.table_bytes, 1),), dtype=torch.uint8,
+                        device=dev)
+    maps = torch.empty((max(plan.map_bytes, 1),), dtype=torch.uint8,
                        device=dev)
+    tail = torch.empty((1,), dtype=torch.int32, device=dev)
     path = torch.empty((n,), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         err = lib.lia_viterbi(
             emissions.data_ptr(), log_trans.data_ptr(), n, s, math.log(s),
-            deltas.data_ptr(), back.data_ptr(), path.data_ptr(),
+            deltas.data_ptr(), table.data_ptr(), maps.data_ptr(),
+            tail.data_ptr(), path.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"viterbi_cuda: CUDA kernel launch failed "
                            f"(cudaError {err})")
+    if recording():
+        count("lia.seg.viterbi_bp_rows", n - 1)
+        count("lia.seg.viterbi_tail_rows", int(tail.item()))
     launch_counts["viterbi"] += 1
     return path
 

@@ -74,6 +74,10 @@ counters = {name: 0 for name in (
     "lia.seg.decodes",          # decodes of seg.diarization's E-HMM and
                                 # ReSegmentation (emissions, then Viterbi)
     "lia.seg.viterbi_frames",   # their frames, summed over decodes
+    "lia.seg.viterbi_bp_rows",  # back pointer rows the Viterbi kernel
+                                # derives: N - 1 a decode on the card
+    "lia.seg.viterbi_tail_rows",  # of those, the rows not yet derived when
+                                # its forward's last step was stored
     "lia.seg.state_adapts",     # state rows MAP-adapted: the rows of the
                                 # (S, N) masks of each batched adaptation
     "lia.seg.empty_adapts",     # of those, rows adapted on an all-zero mask

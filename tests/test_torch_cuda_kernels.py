@@ -698,13 +698,16 @@ def _viterbi_case(n, s, seed):
     return em, lt
 
 
-@pytest.mark.parametrize("s", [1, 2, 3, 5, 8, 9, 16, 17, 32])
-@pytest.mark.parametrize("n", [2, 63, 64, 65, 129, 256, 257, 258, 513])
+@pytest.mark.parametrize("s", [1, 2, 3, 5, 8, 9, 12, 16, 17, 20, 24, 28,
+                               32])
+@pytest.mark.parametrize("n", [2, 63, 64, 65, 66, 129, 130, 256, 257,
+                               258, 513])
 def test_viterbi_cuda_every_state_count_at_the_chunk_edges(cuda_device, n,
                                                            s):
-    """Every instance of the kernel (S exact up to 8, padded to 16 and 32
-    above) at the ring's chunk edges (64 steps) and the backtrace's
-    (N - 1 rows over 256 threads: one row each at N = 257, two at 258)."""
+    """Every instance of the kernel (S exact up to 8, rounded up to a
+    multiple of 4 above) at the edges of the ring's 64-step chunks, which
+    the forward publishes, and of the consumers' 64-row units (N - 1
+    rows: one unit at N = 65, two at 66)."""
     from lia_ral_tpu_torch.seg import hmm
 
     em, lt = _viterbi_case(n, s, 40 + s)
@@ -714,18 +717,84 @@ def test_viterbi_cuda_every_state_count_at_the_chunk_edges(cuda_device, n,
 
 @pytest.mark.parametrize("s", [5, 32])
 def test_viterbi_cuda_back_pointers_past_shared_memory(cuda_device, s):
-    """Back pointers fill the shared memory exactly, overflow it by one
-    row into the device scratch, and (S = 5) overflow by more than the
-    shared part at N = 60,000: the path equals the plain loop's."""
+    """The library's shared memory a block is the plan's, for every S;
+    where the layout before spilled back pointers from shared into device
+    memory (its 198,400 bytes full, one row and two rows over) and (S = 5)
+    at N = 60,000, the path equals the plain loop's; so it does at 256
+    and 257 units, where each tail thread composes one unit map, then
+    two."""
     from lia_ral_tpu_torch.seg import hmm
 
     lib = _build.library("viterbi")
-    assert lib.lia_viterbi_shared_bytes() == hmm.BP_SHARED_BYTES
-    full = hmm.BP_SHARED_BYTES // s + 1
-    for n in (full, full + 1, full + 2) + ((60000,) if s == 5 else ()):
+    for states in range(1, 33):
+        assert lib.lia_viterbi_shared_bytes(states) == hmm.shared_bytes(
+            states)
+    full = 198_400 // s + 1
+    for n in ((full, full + 1, full + 2, 256 * 64 + 1, 256 * 64 + 2)
+              + ((60000,) if s == 5 else ())):
         em, lt = _viterbi_case(n, s, n)
         got = hmm.viterbi_cuda(em.to(cuda_device), lt.to(cuda_device))
         assert torch.equal(got.cpu(), hmm.viterbi_reference(em, lt)), n
+
+
+def test_viterbi_cuda_at_the_diarization_cell_shape(cuda_device):
+    """One decode as the broadcast-news cell makes it: 300,000 frames of
+    24 states, 13 active, the other 11 at −1e30 with log 1e-30
+    transitions: the path equals the plain loop's and stays in the active
+    states."""
+    from lia_ral_tpu_torch.seg import hmm
+
+    rng = np.random.default_rng(34)
+    em = (rng.standard_normal((300_000, 24)) * 3).astype(np.float32)
+    em[:, 13:] = -1e30
+    t = np.full((24, 24), 1e-30)
+    t[:13, :13] = hmm.compute_transitions(13)
+    em = torch.from_numpy(em)
+    lt = torch.log(torch.from_numpy(t.astype(np.float32)))
+    got = hmm.viterbi_cuda(em.to(cuda_device), lt.to(cuda_device)).cpu()
+    assert int(got.max()) < 13
+    assert torch.equal(got, hmm.viterbi_reference(em, lt))
+
+
+@pytest.mark.parametrize("s", [1, 5, 12, 24, 32])
+def test_viterbi_cuda_on_log_densities(cuda_device, s):
+    """Emissions as log densities (all negative, a third of the states at
+    −1e30) and log-probability transitions: the path equals the plain
+    loop's."""
+    from lia_ral_tpu_torch.seg import hmm
+
+    rng = np.random.default_rng(36 + s)
+    n, active = 5000, max(1, s - s // 3)
+    em = -np.abs(rng.standard_normal((n, s)) * 3).astype(np.float32) - 20
+    em[:, active:] = -1e30
+    t = np.full((s, s), 1e-30)
+    t[:active, :active] = hmm.compute_transitions(active)
+    em = torch.from_numpy(em)
+    lt = torch.log(torch.from_numpy(t.astype(np.float32)))
+    got = hmm.viterbi_cuda(em.to(cuda_device), lt.to(cuda_device))
+    assert torch.equal(got.cpu(), hmm.viterbi_reference(em, lt))
+
+
+def test_viterbi_cuda_counts_its_tail_under_a_profiler(cuda_device):
+    """Under a profiler a decode counts its N − 1 back pointer rows and
+    fewer rows not yet derived when its forward ended (the consumers keep
+    up with the forward); with no profiler it counts nothing."""
+    from torch.autograd import profiler
+
+    from lia_ral_tpu_torch.seg import hmm
+    from lia_ral_tpu_torch.utils import logging as tlog
+
+    em, lt = _viterbi_case(100_000, 24, 35)
+    em, lt = em.to(cuda_device), lt.to(cuda_device)
+    names = ("lia.seg.viterbi_bp_rows", "lia.seg.viterbi_tail_rows")
+    before = [tlog.counters[k] for k in names]
+    hmm.viterbi_cuda(em, lt)
+    assert [tlog.counters[k] for k in names] == before
+    with profiler.profile():
+        hmm.viterbi_cuda(em, lt)
+    bp, tail = (tlog.counters[k] - b for k, b in zip(names, before))
+    assert bp == 99_999
+    assert 0 <= tail < bp
 
 
 def test_viterbi_cuda_ties_and_inactive_states(cuda_device):

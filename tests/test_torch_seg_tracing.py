@@ -110,8 +110,12 @@ def test_counters_equal_their_closed_forms_and_spans_nest(
     assert counted["lia.seg.d2h_bytes"] == (
         (decodes_e + decodes_r) * N * 8                    # int64 paths
         + decodes_e * N * S * 4)                           # E-HMM emissions
+    # the Viterbi kernel's two counts: no kernel runs on the CPU
+    assert counted["lia.seg.viterbi_bp_rows"] == 0
+    assert counted["lia.seg.viterbi_tail_rows"] == 0
     assert {k: v for k, v in counted.items() if k.startswith("lia.seg.")
-            and v == 0} == {}
+            and v == 0} == {"lia.seg.viterbi_bp_rows": 0,
+                            "lia.seg.viterbi_tail_rows": 0}
 
     ranges = _ranges(tmp_path / "tr")
 
@@ -132,6 +136,8 @@ def test_counters_equal_their_closed_forms_and_spans_nest(
 
 def test_every_seg_counter_is_listed():
     assert set(SEG) == {"lia.seg.decodes", "lia.seg.viterbi_frames",
+                        "lia.seg.viterbi_bp_rows",
+                        "lia.seg.viterbi_tail_rows",
                         "lia.seg.state_adapts", "lia.seg.empty_adapts",
                         "lia.seg.grouped_launches", "lia.seg.grouped_frames",
                         "lia.seg.grouped_pad_frames",

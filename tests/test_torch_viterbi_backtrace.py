@@ -1,7 +1,9 @@
 """The algorithms of the Viterbi kernel (``csrc/viterbi.cu``) on the CPU:
-its back pointers recomputed from the forward's deltas, its backtrace by
-composing chunk maps, its maximum-then-index step, and the layout the
-wrapper describes (``seg.hmm.viterbi_plan``).
+its back pointers recomputed from the forward's deltas a published
+64-step chunk at a time, each unit's path from every top state and its
+map, the tail's composition from the last state and its gather, its
+maximum-then-index step, and the layout the wrapper describes
+(``seg.hmm.viterbi_plan``).
 
 The kernel runs only on the card (``tests/test_torch_cuda_kernels.py``);
 here each algorithm is written in numpy or torch and held against the
@@ -15,7 +17,7 @@ import torch
 
 from lia_ral_tpu_torch.seg import hmm
 
-STATES = [1, 2, 3, 5, 8, 9, 16, 17, 32]
+STATES = [1, 2, 3, 5, 8, 9, 12, 16, 17, 20, 24, 28, 32]
 
 
 def _forward(em, lt, with_deltas=False):
@@ -38,40 +40,69 @@ def _forward(em, lt, with_deltas=False):
 
 
 def _back_pointers_from_deltas(deltas, lt):
-    """The kernel's back-pointer pass: row r, state k: the smallest i
-    with the largest deltas[r, i] + lt[i, k] (f32 adds, as the forward's
-    own)."""
-    c = deltas[:-1, :, None] + lt.numpy()[None]       # (N-1, i, k)
-    return np.argmax(c, axis=1)
+    """The kernel's consumers: row r, state k: the smallest i with the
+    largest deltas[r, i] + lt[i, k] (f32 adds, as the forward's own),
+    derived a published chunk of ``RING_STEPS`` rows at a time."""
+    rows = deltas.shape[0] - 1
+    back = np.empty((rows, deltas.shape[1]), np.int64)
+    for lo in range(0, rows, hmm.RING_STEPS):
+        hi = min(lo + hmm.RING_STEPS, rows)
+        c = deltas[lo:hi, :, None] + lt.numpy()[None]   # (rows, i, k)
+        back[lo:hi] = np.argmax(c, axis=1)
+    return back
 
 
-def _backtrace_by_maps(back, last, chunks=hmm.VITERBI_THREADS):
-    """The kernel's backtrace: the N-1 rows in ``chunks`` contiguous
-    chunks; each chunk's map from its top state to its bottom state for
-    every state (S independent walks); the maps composed from ``last``;
-    then each chunk's path written from its top state."""
+def _unit_tables(back):
+    """Each unit of ``UNIT_ROWS`` rows walked down from every top state s
+    (what lane s of a consumer warp does): the unit's path for each top
+    state, (units, S, UNIT_ROWS), and at the bottom its map, (units, S)."""
     rows, s = back.shape
-    length = -(-rows // chunks) if rows else 0
-    bounds = [(min(c * length, rows), min(c * length + length, rows))
-              for c in range(chunks)]
-    maps = np.empty((chunks, s), np.int64)
-    for c, (lo, hi) in enumerate(bounds):
-        cur = np.arange(s)
+    units = -(-rows // hmm.UNIT_ROWS)
+    table = np.zeros((units, s, hmm.UNIT_ROWS), np.int64)
+    maps = np.empty((units, s), np.int64)
+    for u in range(units):
+        lo, hi = u * hmm.UNIT_ROWS, min(u * hmm.UNIT_ROWS + hmm.UNIT_ROWS,
+                                        rows)
+        st = np.arange(s)
         for r in range(hi - 1, lo - 1, -1):
-            cur = back[r, cur]
-        maps[c] = cur
-    tops = np.empty(chunks, np.int64)
+            table[u, :, r - lo] = st
+            st = back[r, st]
+        maps[u] = st
+    return table, maps
+
+
+def _backtrace_by_maps(back, last, threads=hmm.VITERBI_THREADS):
+    """The kernel's tail: thread t composes the maps of its contiguous
+    ceil(units / threads) units; the composites composed from ``last``
+    give each thread's top state; each thread walks its units' maps for
+    each unit's top state; then path[r] = table[unit, top, r % 64]."""
+    rows, s = back.shape
+    table, maps = _unit_tables(back)
+    units = maps.shape[0]
+    per = -(-units // threads) if units else 0
+    owners = -(-units // per) if per else 0
+    composite = np.empty((owners, s), np.int64)
+    for t in range(owners):
+        cur = np.arange(s)
+        for u in range(min(t * per + per, units) - 1, t * per - 1, -1):
+            cur = maps[u, cur]
+        composite[t] = cur
+    tops = np.empty(owners, np.int64)
     state = last
-    for c in range(chunks - 1, -1, -1):
-        tops[c] = state
-        state = maps[c, state]
+    for t in range(owners - 1, -1, -1):
+        tops[t] = state
+        state = composite[t, state]
+    utops = np.empty(units, np.int64)
+    for t in range(owners):
+        state = tops[t]
+        for u in range(min(t * per + per, units) - 1, t * per - 1, -1):
+            utops[u] = state
+            state = maps[u, state]
     path = np.empty(rows + 1, np.int64)
     path[rows] = last
-    for c, (lo, hi) in enumerate(bounds):
-        state = tops[c]
-        for r in range(hi - 1, lo - 1, -1):
-            path[r] = state
-            state = back[r, state]
+    r = np.arange(rows)
+    path[:rows] = table[r // hmm.UNIT_ROWS, utops[r // hmm.UNIT_ROWS],
+                        r % hmm.UNIT_ROWS]
     return path
 
 
@@ -130,6 +161,7 @@ def test_map_backtrace_at_the_diarization_length(s):
 @pytest.mark.parametrize("chunks", [1, 7, 256])
 @pytest.mark.parametrize("n,s", [(2, 1), (300, 3), (1000, 17), (5000, 32)])
 def test_map_backtrace_on_random_back_pointers(n, s, chunks):
+    """The tail with ``chunks`` threads composing the unit maps."""
     rng = np.random.default_rng(n + s)
     back = rng.integers(0, s, (n - 1, s))
     last = int(rng.integers(s))
@@ -137,11 +169,65 @@ def test_map_backtrace_on_random_back_pointers(n, s, chunks):
                                   _sequential(back, last))
 
 
+def _e_hmm_problem(n, s, active, seed):
+    """The E-HMM's decode: emissions of ``active`` states, the rest
+    −1e30, transitions among the active states and log 1e-30 elsewhere."""
+    rng = np.random.default_rng(seed)
+    em = (rng.standard_normal((n, s)) * 3).astype(np.float32)
+    em[:, active:] = -1e30
+    t = np.full((s, s), 1e-30)
+    t[:active, :active] = hmm.compute_transitions(active)
+    return (torch.from_numpy(em),
+            torch.log(torch.from_numpy(t.astype(np.float32))))
+
+
+def _schedule(em, lt):
+    """The kernel's whole schedule: the forward's deltas, back pointers a
+    published chunk at a time, the unit tables and maps, the tail."""
+    back, last, deltas = _forward(em, lt, with_deltas=True)
+    again = _back_pointers_from_deltas(deltas, lt)
+    np.testing.assert_array_equal(again, back)
+    return _backtrace_by_maps(again, last)
+
+
+# the edges of the 64-row units and published chunks (N - 1 rows: 62, 63,
+# 64, 65; 127, 128) and of the tail's 256 threads (256 units: one each;
+# 257: two each)
+@pytest.mark.parametrize("s", [1, 5, 24, 32])
+@pytest.mark.parametrize("n", [1, 2, 63, 64, 65, 66, 128, 129,
+                               256 * 64 + 1, 256 * 64 + 2])
+def test_schedule_equals_the_plain_loop_at_the_chunk_edges(n, s):
+    em, lt = _tied_problem(n, s, seed=7 * n + s)
+    np.testing.assert_array_equal(_schedule(em, lt),
+                                  hmm.viterbi_reference(em, lt).numpy())
+
+
+def test_schedule_at_the_diarization_cell_shape():
+    """300,000 frames of 24 states, 13 active and 11 at −1e30, as the
+    E-HMM decodes them mid-way: the schedule's path is the plain loop's
+    and never enters an inactive state."""
+    em, lt = _e_hmm_problem(300_000, 24, 13, seed=24)
+    got = _schedule(em, lt)
+    assert got.max() < 13
+    np.testing.assert_array_equal(got, hmm.viterbi_reference(em, lt).numpy())
+
+
+@pytest.mark.parametrize("s", [1, 5, 24])
+def test_schedule_on_log_densities(s):
+    """Emissions as log densities (all negative, the E-HMM's −1e30
+    columns among them) and log-probability transitions: the schedule's
+    path is the plain loop's."""
+    em, lt = _e_hmm_problem(3000, s, max(1, s // 2), seed=s)
+    em = em - em.max() - 1.0
+    np.testing.assert_array_equal(_schedule(em, lt),
+                                  hmm.viterbi_reference(em, lt).numpy())
+
+
 def _best_previous(c, s):
     """The kernel's step on one lane's candidates c (S real, -inf up to
     SP): the maximum by a pairwise fmaxf tree, then the smallest index
     whose candidate equals it."""
-    sp = s if s <= 8 else (16 if s <= 16 else 32)
+    sp = hmm.instance(s)
     c = np.concatenate([c, np.full(sp - s, -np.inf, np.float32)])
     m = c.copy()
     w = 1
@@ -173,26 +259,42 @@ def test_plan_ring_chunks(n, chunks, tail):
     assert plan.delta_floats == n * 5 + 32
 
 
-@pytest.mark.parametrize("n,rows", [(1, 0), (2, 1), (257, 1), (258, 2),
-                                    (30573, 120)])
-def test_plan_backtrace_rows(n, rows):
-    assert hmm.viterbi_plan(n, 5).backtrace_rows == rows
+@pytest.mark.parametrize("n,units,per,rows", [
+    (1, 0, 0, 0), (2, 1, 1, 1), (257, 4, 1, 256), (258, 5, 1, 257),
+    (30573, 478, 2, 4096), (256 * 64 + 2, 257, 2, 3 * 16 * 64),
+    (300_000, 4688, 19, 37 * 16 * 64)])
+def test_plan_backtrace_rows(n, units, per, rows):
+    """N − 1 rows in units of 64; a tail thread composes ceil(units /
+    256) unit maps; a tail warp writes 16 units of path a step."""
+    plan = hmm.viterbi_plan(n, 5)
+    assert (plan.units, plan.backtrace_units, plan.backtrace_rows) == (
+        units, per, rows)
 
 
 @pytest.mark.parametrize("s", [5, 32])
 def test_plan_back_pointers_switch_to_device_memory(s):
-    full = hmm.BP_SHARED_BYTES // s + 1       # (N-1)·S fits exactly or not
-    at = hmm.viterbi_plan(full, s)
-    assert at.shared_bp_bytes == (full - 1) * s and at.device_bp_bytes == 0
-    over = hmm.viterbi_plan(full + 1, s)
-    assert over.shared_bp_bytes == hmm.BP_SHARED_BYTES
-    assert over.device_bp_bytes == full * s - hmm.BP_SHARED_BYTES > 0
+    """The back pointers stay in shared memory, a unit at a time, at any
+    N: where the layout before switched them to device memory (its
+    198,400 shared bytes full, and one row more) device memory takes each
+    unit's path from every top state (S·64 bytes) and its map and top
+    state (33), and the shared memory does not grow."""
+    full = 198_400 // s + 1
+    for n in (full, full + 1):
+        plan = hmm.viterbi_plan(n, s)
+        units = -(-(n - 1) // 64)
+        assert plan.units == units
+        assert plan.table_bytes == units * s * 64 >= (n - 1) * s
+        assert plan.map_bytes == units * 33 + 16
+    assert hmm.shared_bytes(s) == {5: 49_152, 32: 106_752}[s]
 
 
 def test_plan_fits_the_diarization_in_shared_memory():
+    """Every instance's shared memory fits one block with room for the
+    static arrays, and the diarization's decode is 478 units."""
     plan = hmm.viterbi_plan(30573, 5)
-    assert plan.device_bp_bytes == 0 and plan.shared_bp_bytes == 152_860
-    assert hmm.BP_SHARED_BYTES == 198_400
+    assert plan.units == 478 and plan.table_bytes == 152_960
+    assert max(hmm.shared_bytes(s) for s in range(1, 33)) == 106_752
+    assert 106_752 <= 232_448 - 1024
 
 
 def test_plan_rejects_what_the_kernel_cannot_index():
