@@ -8,6 +8,8 @@ computeNap (cpp:128-138), getFisherWeightVector (cpp:240), getKLVector
 training of ``LIA_SpkDet/CovIntra`` (CovIntra.cpp:257: within-class
 covariance top eigenvectors via SVDLIBC Lanczos → here an SVD of the
 speaker-centred matrix).  Every function computes on its inputs' device.
+NAP's projection and its training are spans of ``utils.logging``
+(``lia.sv.nap``, ``lia.sv.nap_train``), on only while a profiler records.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..gmm.model import GmmDiag
+from ..utils.logging import span
 
 
 def model_to_sv(gmm: GmmDiag) -> torch.Tensor:
@@ -43,7 +46,8 @@ def compute_nap(gmm: GmmDiag, u: torch.Tensor) -> GmmDiag:
 def nap_project_vectors(vectors: torch.Tensor, u: torch.Tensor
                         ) -> torch.Tensor:
     """Batched NAP on raw supervectors (reference NAPSV utility)."""
-    return vectors - project_on_subspace(vectors, u)
+    with span("lia.sv.nap"):
+        return vectors - project_on_subspace(vectors, u)
 
 
 def fisher_weight_vector(world: GmmDiag, client: GmmDiag) -> torch.Tensor:
@@ -76,13 +80,14 @@ def train_nap_subspace(vectors: torch.Tensor, spk_ids: torch.Tensor,
     the supervectors, via SVD of the speaker-centred matrix (replacing
     SVDLIBC svdLAS2).  Returns (rank, dim) with orthonormal rows; their
     signs are the solver's (compare subspaces through their projector)."""
-    spk_ids = spk_ids.to(device=vectors.device, dtype=torch.long)
-    one_hot = torch.nn.functional.one_hot(spk_ids, n_speakers).to(
-        vectors.dtype)
-    counts = torch.clamp(one_hot.sum(dim=0), min=1.0)
-    means = (one_hot.T @ vectors) / counts[:, None]
-    centered = vectors - means[spk_ids]
-    # right singular vectors of the centred matrix = eigenvectors of the
-    # within-class scatter
-    _, _, vt = torch.linalg.svd(centered, full_matrices=False)
-    return vt[:rank]
+    with span("lia.sv.nap_train"):
+        spk_ids = spk_ids.to(device=vectors.device, dtype=torch.long)
+        one_hot = torch.nn.functional.one_hot(spk_ids, n_speakers).to(
+            vectors.dtype)
+        counts = torch.clamp(one_hot.sum(dim=0), min=1.0)
+        means = (one_hot.T @ vectors) / counts[:, None]
+        centered = vectors - means[spk_ids]
+        # right singular vectors of the centred matrix = eigenvectors of
+        # the within-class scatter
+        _, _, vt = torch.linalg.svd(centered, full_matrices=False)
+        return vt[:rank]

@@ -26,6 +26,30 @@ per launch, nothing else adds to it).
 
 The bias and the support selection run on the host, as in the JAX
 package.
+
+``svm_train`` with the linear kernel solves on the training vectors
+translated by their mean, where the JAX package solves on them as given.
+GMM supervectors (KL or means) share a large common part, the world's
+own means: it adds an eigenvalue of about N·‖m‖² to Q along y, which the
+constraint yᵀα = 0 removes from the problem but which still sets the
+step 1/λ_max(Q), so 500 FISTA steps leave α far from the optimum.  For
+α with yᵀα = 0, αᵀQα does not change under a translation of the
+vectors, so the optimum is the same; the bias absorbs −w·m, and the
+model keeps the raw support vectors and its decision formula.  C stays
+``default_c`` of the raw vectors (LIA's getC).  The rbf kernel is
+translation-invariant; the poly kernel is solved as given.  The support
+vectors are those with α over 1e-6·C, the bias's own bound: the float32
+projection on the card can lift every zero α over a smaller one, and
+the model then kept every training vector.  Dropping them moves yᵀα off
+0, which the raw vectors' common part would carry into every score, so
+it is restored over the free vectors in float64.
+
+Spans and counters (``utils.logging``, on only while a profiler
+records): ``lia.svm.train`` ⊃ ``lia.svm.host`` (the host reads of X, α
+and K, ``default_c``, the bias and the support selection),
+``lia.svm.gram`` (the translation and the kernel matrix),
+``lia.svm.dual`` (the solve alone); ``lia.svm.decision``; the
+``lia.svm.*`` counters say what each counts.
 """
 
 from __future__ import annotations
@@ -34,6 +58,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from ..utils.logging import count, span
 
 MAX_VECTORS = 8192              # the most training vectors of a problem
 POWER_STEPS, BISECTION_STEPS = 16, 50
@@ -174,14 +200,16 @@ class SvmModel:
 
     def decision(self, x: torch.Tensor) -> torch.Tensor:
         """Decision values of the rows of x, on x's device."""
-        x = torch.as_tensor(x, dtype=torch.float32)
-        sup = torch.as_tensor(self.support, dtype=torch.float32,
-                              device=x.device)
-        ay = torch.as_tensor(self.alpha_y, dtype=torch.float32,
-                             device=x.device)
-        k = kernel_matrix(x, sup, self.kind, self.degree, self.gamma,
-                          self.coef0)
-        return k @ ay + self.bias
+        with span("lia.svm.decision"):
+            x = torch.as_tensor(x, dtype=torch.float32)
+            sup = torch.as_tensor(self.support, dtype=torch.float32,
+                                  device=x.device)
+            ay = torch.as_tensor(self.alpha_y, dtype=torch.float32,
+                                 device=x.device)
+            count("lia.svm.h2d_bytes", 4 * (sup.numel() + ay.numel()))
+            k = kernel_matrix(x, sup, self.kind, self.degree, self.gamma,
+                              self.coef0)
+            return k @ ay + self.bias
 
 
 def default_c(x: np.ndarray) -> float:
@@ -317,27 +345,64 @@ def svm_train(x, y, c: float | None = None,
 
     x (N, D): a tensor (the solve runs on its device) or a numpy array
     (on the CPU); y ∈ {+1,−1}; ``target_penalty`` multiplies C for the +1
-    class (reference targetPenalty for unbalanced 1-vs-cohort data)."""
-    xt = torch.as_tensor(x, dtype=torch.float32)
-    x_np = xt.cpu().numpy()
-    y = np.asarray(y, np.float32)
-    if c is None:
-        c = default_c(x_np)
-    c_vec = np.full(y.shape, c, np.float32)
-    if target_penalty is not None:
-        c_vec[y > 0] *= target_penalty
-    dev = xt.device
-    k = kernel_matrix(xt, xt, kind, degree, gamma, coef0)
-    alpha = _dual_solve(k, torch.from_numpy(y).to(dev),
-                        torch.from_numpy(c_vec).to(dev),
-                        n_iter=n_iter).cpu().numpy()
-    # bias from margin support vectors (0 < α < C)
-    dec0 = k.cpu().numpy() @ (alpha * y)
-    on_margin = (alpha > 1e-6 * c) & (alpha < c_vec * (1 - 1e-6))
-    if on_margin.any():
-        bias = float(np.mean(y[on_margin] - dec0[on_margin]))
-    else:
-        bias = float(np.mean(y - dec0))
-    keep = alpha > 1e-8
-    return SvmModel(support=x_np[keep], alpha_y=(alpha * y)[keep], bias=bias,
-                    kind=kind, degree=degree, gamma=gamma, coef0=coef0)
+    class (reference targetPenalty for unbalanced 1-vs-cohort data).  The
+    linear kernel is solved on the vectors less their mean (the module's
+    docstring says why); the model holds the raw support vectors."""
+    with span("lia.svm.train"):
+        xt = torch.as_tensor(x, dtype=torch.float32)
+        n = xt.shape[0]
+        dev = xt.device
+        with span("lia.svm.host"):
+            x_np = xt.cpu().numpy()
+            count("lia.svm.d2h_bytes", 4 * xt.numel())
+            y = np.asarray(y, np.float32)
+            if c is None:
+                c = default_c(x_np)
+            c_vec = np.full(y.shape, c, np.float32)
+            if target_penalty is not None:
+                c_vec[y > 0] *= target_penalty
+        with span("lia.svm.gram"):
+            centre = xt.mean(dim=0) if kind == "linear" else None
+            xs = xt if centre is None else xt - centre
+            k = kernel_matrix(xs, xs, kind, degree, gamma, coef0)
+            del xs
+        yt = torch.from_numpy(y).to(dev)
+        ct = torch.from_numpy(c_vec).to(dev)
+        count("lia.svm.h2d_bytes", 8 * n)
+        with span("lia.svm.dual"):
+            alpha_t = _dual_solve(k, yt, ct, n_iter=n_iter)
+        count("lia.svm.solves")
+        count("lia.svm.vectors", n)
+        count("lia.svm.q_entries", n * n)
+        count("lia.svm.dual_steps", n_iter * n * n)
+        count("lia.svm.dual_step_vectors", n_iter * n)
+        with span("lia.svm.host"):
+            alpha = alpha_t.cpu().numpy().astype(np.float64)
+            k_np = k.cpu().numpy()
+            count("lia.svm.d2h_bytes", 4 * (n + n * n))
+            # α at or under 1e-6·C is 0 (the float32 projection can lift
+            # every zero α a little); yᵀα = 0 is then restored over the
+            # free vectors, 0 < α < C, in float64
+            keep = alpha > 1e-6 * c
+            alpha[~keep] = 0.0
+            on_margin = keep & (alpha < c_vec * (1 - 1e-6))
+            if on_margin.any():
+                alpha[on_margin] -= ((alpha @ y) * y[on_margin]
+                                     / on_margin.sum())
+            alpha = alpha.astype(np.float32)
+            # bias from margin support vectors (0 < α < C)
+            dec0 = k_np @ (alpha * y)
+            if on_margin.any():
+                bias = float(np.mean(y[on_margin] - dec0[on_margin]))
+            else:
+                bias = float(np.mean(y - dec0))
+            support, alpha_y = x_np[keep], (alpha * y)[keep]
+            if centre is not None:
+                # the raw vectors' decision: w·x + bias − w·m
+                m = centre.cpu().numpy().astype(np.float64)
+                count("lia.svm.d2h_bytes", 4 * m.size)
+                bias -= float(alpha_y.astype(np.float64)
+                              @ (support.astype(np.float64) @ m))
+            count("lia.svm.support", int(keep.sum()))
+    return SvmModel(support=support, alpha_y=alpha_y, bias=bias, kind=kind,
+                    degree=degree, gamma=gamma, coef0=coef0)

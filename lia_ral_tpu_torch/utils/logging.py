@@ -93,6 +93,17 @@ counters = {name: 0 for name in (
                                 # and on a card each adaptation's row layout
     "lia.seg.d2h_bytes",        # bytes they read back: each path and, in the
                                 # E-HMM, each (N, S) emission block
+    "lia.svm.solves",           # C-SVC dual solves of backend.svm.svm_train
+    "lia.svm.vectors",          # their training vectors N, summed over solves
+    "lia.svm.q_entries",        # their Q entries N², summed over solves
+    "lia.svm.dual_steps",       # FISTA steps times N², summed over solves
+    "lia.svm.dual_step_vectors",  # FISTA steps times N, summed over solves
+    "lia.svm.support",          # support vectors the models keep
+    "lia.svm.h2d_bytes",        # bytes handed to the device: y and the bounds
+                                # C of each solve, the support vectors and
+                                # α·y of each SvmModel.decision call
+    "lia.svm.d2h_bytes",        # bytes svm_train reads to the host: X, α, the
+                                # kernel matrix and the mean it translates by
 )}
 _counter_lock = threading.Lock()    # the shards of a mesh run in threads
 _NO_SPAN = contextlib.nullcontext()

@@ -27,6 +27,9 @@ also sit closer to its own plain version than to the default tier's, so
 that rounding at other points would show.
 """
 
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -953,6 +956,58 @@ def test_svm_train_runs_the_kernel_once(cuda_device, monkeypatch):
     assert svm.launch_counts["svm_dual"] == before + 1
     dec = model.decision(x).cpu().numpy()
     assert dec[:5].min() > dec[5:].max()
+
+
+def test_svm_train_reaches_the_optimum_on_raw_supervectors(cuda_device):
+    """svm_train on supervector-like vectors with a large common part (a
+    shared mean, speaker and rank-64 channel offsets of 5 % of its norm;
+    one target against 4,095 sides, N = 4,096: the streaming plan, one
+    launch) gives the primal weights of the float64 SMO optimum of
+    ``tests/plain_ref/gmm_svm_nap.py`` and its scores within the GMM-SVM
+    cell's ``w_gap_rel`` and ``score_gap`` limits, where 500 FISTA steps
+    on the raw vectors do not come near it."""
+    from lia_ral_tpu_torch.backend import svm
+    from plain_ref import gmm_svm_nap as ref
+
+    limits = json.loads((Path(__file__).resolve().parent.parent
+                         / "benchmark" / "workloads"
+                         / "gmm_svm_nap_campbell2006.enrol_1conv.json"
+                         ).read_text())["limits"]
+    limit = limits["w_gap_rel"]
+    g = torch.Generator(device=cuda_device).manual_seed(20)
+    d, rank, scale = 8192, 64, 0.05 / 2 ** 0.5
+    mean = torch.randn(d, generator=g, device=cuda_device)
+    spk = torch.randn(1366, d, generator=g, device=cuda_device) * scale
+    chan = (torch.randn(rank, d, generator=g, device=cuda_device)
+            * (scale / rank ** 0.5))
+    x = (mean + spk.repeat_interleave(3, 0)
+         + torch.randn(3 * 1366, rank, generator=g, device=cuda_device)
+         @ chan)
+    x = torch.cat([x[1:2], x[3:]])        # a target's side, other speakers
+    n = x.shape[0]
+    assert n == 4096 and svm.solve_plan(n, svm.card_max_cluster()).regime \
+        == "streaming"
+    y = np.r_[1.0, -np.ones(n - 1)].astype(np.float32)
+    before = svm.launch_counts["svm_dual"]
+    model = svm.svm_train(x, y)
+    assert svm.launch_counts["svm_dual"] == before + 1
+    w = (torch.as_tensor(model.alpha_y, device=cuda_device).double()
+         @ torch.as_tensor(model.support, device=cuda_device).double())
+    w_ref, b_ref, _, _ = ref.svm_train(x[:1].double(), x[1:].double())
+    gap = float((w - w_ref[0]).norm() / w_ref[0].norm())
+    assert gap <= limit, gap
+    # the same 500 steps on the untranslated vectors
+    k = svm.kernel_matrix(x, x)
+    a_raw = svm.dual_solve_cuda(k, torch.as_tensor(y, device=cuda_device),
+                                torch.full((n,), svm.default_c(
+                                    x.cpu().numpy()), device=cuda_device))
+    w_raw = (a_raw.double() * torch.as_tensor(y, device=cuda_device)
+             .double()) @ x.double()
+    assert float((w_raw - w_ref[0]).norm() / w_ref[0].norm()) > 10 * limit
+    scores = model.decision(x[:64]).double()
+    want = x[:64].double() @ w_ref[0] + b_ref[0]
+    gap = float((scores - want).abs().max() / want.std())
+    assert gap <= limits["score_gap"], gap
 
 
 def test_svm_dual_cuda_rejects_bad_inputs(cuda_device):
