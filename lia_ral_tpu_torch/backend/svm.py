@@ -24,7 +24,10 @@ tensor's device, with no fallback: a CUDA tensor launches the kernel or
 raises.  ``launch_counts["svm_dual"]`` counts the kernel's launches (one
 per launch, nothing else adds to it).
 
-The bias and the support selection run on the host, as in the JAX
+C, the support selection, the bias and the support rows are computed on
+the training vectors' device: on a card a solve reads one small tensor
+back (the support count and the bias), and its model keeps its support
+rows and α·y there; off the card they are numpy arrays, as in the JAX
 package.
 
 ``svm_train`` with the linear kernel solves on the training vectors
@@ -36,19 +39,21 @@ step 1/λ_max(Q), so 500 FISTA steps leave α far from the optimum.  For
 α with yᵀα = 0, αᵀQα does not change under a translation of the
 vectors, so the optimum is the same; the bias absorbs −w·m, and the
 model keeps the raw support vectors and its decision formula.  C stays
-``default_c`` of the raw vectors (LIA's getC).  The rbf kernel is
-translation-invariant; the poly kernel is solved as given.  The support
-vectors are those with α over 1e-6·C, the bias's own bound: the float32
-projection on the card can lift every zero α over a smaller one, and
-the model then kept every training vector.  Dropping them moves yᵀα off
-0, which the raw vectors' common part would carry into every score, so
-it is restored over the free vectors in float64.
+``default_c`` of the raw vectors (LIA's getC), its sums taken in
+float64.  The rbf kernel is translation-invariant; the poly kernel is
+solved as given.  The support vectors are those with α over 1e-6·C, the
+bias's own bound: the float32 projection on the card can lift every zero
+α over a smaller one, and the model then kept every training vector.
+Dropping them moves yᵀα off 0, which the raw vectors' common part would
+carry into every score, so it is restored over the free vectors in
+float64.
 
 Spans and counters (``utils.logging``, on only while a profiler
-records): ``lia.svm.train`` ⊃ ``lia.svm.host`` (the host reads of X, α
-and K, ``default_c``, the bias and the support selection),
-``lia.svm.gram`` (the translation and the kernel matrix),
-``lia.svm.dual`` (the solve alone); ``lia.svm.decision``; the
+records): ``lia.svm.train`` ⊃ ``lia.svm.bounds`` (the mean, the rows'
+float64 sums, C and the bounds), ``lia.svm.gram`` (the translation and
+the kernel matrix), ``lia.svm.dual`` (the solve alone),
+``lia.svm.model`` (the support selection, the bias, the one host read
+and the gather of the support rows); ``lia.svm.decision``; the
 ``lia.svm.*`` counters say what each counts.
 """
 
@@ -190,8 +195,11 @@ def kernel_matrix(x: torch.Tensor, y: torch.Tensor, kind: str = "linear",
 
 @dataclasses.dataclass
 class SvmModel:
-    support: np.ndarray     # (N, D) training vectors
-    alpha_y: np.ndarray     # (N,) α_i·y_i
+    """A trained C-SVC.  ``support`` and ``alpha_y`` are tensors on the
+    card that trained it, numpy arrays off it (and when loaded from a
+    file)."""
+    support: np.ndarray | torch.Tensor      # (N, D) training vectors
+    alpha_y: np.ndarray | torch.Tensor      # (N,) α_i·y_i
     bias: float
     kind: str = "linear"
     degree: int = 1
@@ -202,14 +210,34 @@ class SvmModel:
         """Decision values of the rows of x, on x's device."""
         with span("lia.svm.decision"):
             x = torch.as_tensor(x, dtype=torch.float32)
-            sup = torch.as_tensor(self.support, dtype=torch.float32,
-                                  device=x.device)
-            ay = torch.as_tensor(self.alpha_y, dtype=torch.float32,
-                                 device=x.device)
-            count("lia.svm.h2d_bytes", 4 * (sup.numel() + ay.numel()))
+            sup = _moved(self.support, x.device)
+            ay = _moved(self.alpha_y, x.device)
             k = kernel_matrix(x, sup, self.kind, self.degree, self.gamma,
                               self.coef0)
             return k @ ay + self.bias
+
+    def host(self) -> "SvmModel":
+        """This model with ``support`` and ``alpha_y`` as numpy arrays, as
+        a file holds them: a card model's are read to the host."""
+        cpu = torch.device("cpu")
+        return dataclasses.replace(
+            self, support=_moved(self.support, cpu).numpy(),
+            alpha_y=_moved(self.alpha_y, cpu).numpy())
+
+
+def _moved(a, dev: torch.device) -> torch.Tensor:
+    """``a`` as a float32 tensor on ``dev``; a copy from the host to a card
+    counts its bytes, a read from a card to the host its bytes and a host
+    sync."""
+    t = torch.as_tensor(a, dtype=torch.float32)
+    if t.device == dev:
+        return t
+    if dev.type == "cpu":
+        count("lia.svm.d2h_bytes", 4 * t.numel())
+        count("lia.svm.host_syncs")
+    elif t.device.type == "cpu":
+        count("lia.svm.h2d_bytes", 4 * t.numel())
+    return t.to(dev)
 
 
 def default_c(x: np.ndarray) -> float:
@@ -337,6 +365,32 @@ def _dual_solve(k: torch.Tensor, y: torch.Tensor, c_vec: torch.Tensor,
                            c_vec.to(dev).contiguous(), n_iter)
 
 
+# elements a float64 block of ``_row_sums`` holds (256 MiB): enough work
+# a block that the card, not the launches, sets the pace
+F64_BLOCK = 1 << 25
+
+
+def _row_sums(x: torch.Tensor, v: torch.Tensor | None, squares: bool):
+    """‖x_i‖² (where ``squares``) and x_i·v (where v is given) of the rows
+    of x, in float64 with exact products, a block of rows at a time so
+    that the float64 copy stays small."""
+    n, d = x.shape
+    f64 = {"dtype": torch.float64, "device": x.device}
+    sq = torch.empty(n, **f64) if squares else None
+    xm = torch.empty(n, **f64) if v is not None else None
+    if sq is None and xm is None:
+        return sq, xm
+    m = v.double() if v is not None else None
+    rows = max(1, F64_BLOCK // max(d, 1))
+    for i in range(0, n, rows):
+        blk = x[i:i + rows].double()
+        if xm is not None:
+            torch.mv(blk, m, out=xm[i:i + rows])
+        if sq is not None:
+            torch.sum(blk.square_(), dim=1, out=sq[i:i + rows])
+    return sq, xm
+
+
 def svm_train(x, y, c: float | None = None,
               target_penalty: float | None = None, kind: str = "linear",
               degree: int = 1, gamma: float = 0.0, coef0: float = 0.0,
@@ -347,62 +401,73 @@ def svm_train(x, y, c: float | None = None,
     (on the CPU); y ∈ {+1,−1}; ``target_penalty`` multiplies C for the +1
     class (reference targetPenalty for unbalanced 1-vs-cohort data).  The
     linear kernel is solved on the vectors less their mean (the module's
-    docstring says why); the model holds the raw support vectors."""
+    docstring says why); the model holds the raw support vectors.  All
+    of it runs on x's device, which a solve waits on once: for the
+    support count and the bias."""
     with span("lia.svm.train"):
         xt = torch.as_tensor(x, dtype=torch.float32)
         n = xt.shape[0]
         dev = xt.device
-        with span("lia.svm.host"):
-            x_np = xt.cpu().numpy()
-            count("lia.svm.d2h_bytes", 4 * xt.numel())
-            y = np.asarray(y, np.float32)
-            if c is None:
-                c = default_c(x_np)
-            c_vec = np.full(y.shape, c, np.float32)
-            if target_penalty is not None:
-                c_vec[y > 0] *= target_penalty
-        with span("lia.svm.gram"):
+        with span("lia.svm.bounds"):
+            yt = torch.as_tensor(y, dtype=torch.float32)
+            if yt.device != dev:
+                count("lia.svm.h2d_bytes", 4 * yt.numel())
+                # from page-locked memory: the copy waits for nothing
+                # queued before it
+                yt = yt.pin_memory().to(dev, non_blocking=True)
             centre = xt.mean(dim=0) if kind == "linear" else None
+            sq, xm = _row_sums(xt, centre, c is None)
+            # C = 1/mean‖x‖² (``default_c``, LIA's getC) unless given
+            c_t = (1.0 / torch.clamp(sq.mean(), min=1e-12) if c is None
+                   else torch.full((), float(c), dtype=torch.float64,
+                                   device=dev))
+            c32 = c_t.float()
+            tp = 1.0 if target_penalty is None else target_penalty
+            c_vec = torch.where(yt > 0, c32 * tp, c32)
+        with span("lia.svm.gram"):
             xs = xt if centre is None else xt - centre
             k = kernel_matrix(xs, xs, kind, degree, gamma, coef0)
             del xs
-        yt = torch.from_numpy(y).to(dev)
-        ct = torch.from_numpy(c_vec).to(dev)
-        count("lia.svm.h2d_bytes", 8 * n)
         with span("lia.svm.dual"):
-            alpha_t = _dual_solve(k, yt, ct, n_iter=n_iter)
+            alpha_t = _dual_solve(k, yt, c_vec, n_iter=n_iter)
         count("lia.svm.solves")
         count("lia.svm.vectors", n)
         count("lia.svm.q_entries", n * n)
         count("lia.svm.dual_steps", n_iter * n * n)
         count("lia.svm.dual_step_vectors", n_iter * n)
-        with span("lia.svm.host"):
-            alpha = alpha_t.cpu().numpy().astype(np.float64)
-            k_np = k.cpu().numpy()
-            count("lia.svm.d2h_bytes", 4 * (n + n * n))
+        with span("lia.svm.model"):
+            y64 = yt.double()
             # α at or under 1e-6·C is 0 (the float32 projection can lift
             # every zero α a little); yᵀα = 0 is then restored over the
             # free vectors, 0 < α < C, in float64
-            keep = alpha > 1e-6 * c
-            alpha[~keep] = 0.0
+            alpha = alpha_t.double()
+            keep = alpha > 1e-6 * c_t
+            alpha = torch.where(keep, alpha, 0.0)
             on_margin = keep & (alpha < c_vec * (1 - 1e-6))
-            if on_margin.any():
-                alpha[on_margin] -= ((alpha @ y) * y[on_margin]
-                                     / on_margin.sum())
-            alpha = alpha.astype(np.float32)
-            # bias from margin support vectors (0 < α < C)
-            dec0 = k_np @ (alpha * y)
-            if on_margin.any():
-                bias = float(np.mean(y[on_margin] - dec0[on_margin]))
-            else:
-                bias = float(np.mean(y - dec0))
-            support, alpha_y = x_np[keep], (alpha * y)[keep]
-            if centre is not None:
+            n_margin = on_margin.sum()
+            per = torch.clamp(n_margin, min=1)
+            alpha = torch.where(on_margin,
+                                alpha - (alpha @ y64) * y64 / per, alpha)
+            ay = alpha.float() * yt             # 0 off the support
+            # bias from margin support vectors (0 < α < C), else from all;
+            # K(α·y) in float64, a block of K's rows at a time
+            resid = y64 - _row_sums(k, ay, False)[1]
+            bias = torch.where(n_margin > 0,
+                               torch.where(on_margin, resid, 0.0).sum() / per,
+                               resid.mean())
+            if xm is not None:
                 # the raw vectors' decision: w·x + bias − w·m
-                m = centre.cpu().numpy().astype(np.float64)
-                count("lia.svm.d2h_bytes", 4 * m.size)
-                bias -= float(alpha_y.astype(np.float64)
-                              @ (support.astype(np.float64) @ m))
-            count("lia.svm.support", int(keep.sum()))
-    return SvmModel(support=support, alpha_y=alpha_y, bias=bias, kind=kind,
-                    degree=degree, gamma=gamma, coef0=coef0)
+                bias = bias - ay.double() @ xm
+            # the solve's one host read
+            n_sup, bias = torch.stack([keep.sum().double(), bias]).tolist()
+            n_sup = int(n_sup)
+            count("lia.svm.host_syncs")
+            if dev.type != "cpu":
+                count("lia.svm.d2h_bytes", 16)
+            rows = torch.nonzero_static(keep, size=n_sup)[:, 0]
+            model = SvmModel(support=xt.index_select(0, rows),
+                             alpha_y=ay.index_select(0, rows), bias=bias,
+                             kind=kind, degree=degree, gamma=gamma,
+                             coef0=coef0)
+            count("lia.svm.support", n_sup)
+    return model if dev.type != "cpu" else model.host()

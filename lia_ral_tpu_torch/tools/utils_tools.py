@@ -513,7 +513,7 @@ def svm_train_main(cfg: Config):
             target_penalty=cfg.get_float("targetPenalty")
             if cfg.exists("targetPenalty") else None,
             kind={0: "linear", 1: "poly", 2: "rbf"}.get(
-                cfg.get_int("kernelType", 0), "linear"))
+                cfg.get_int("kernelType", 0), "linear")).host()
         np.savez(os.path.join(root, target + ".svm.npz"),
                  support=model.support, alpha_y=model.alpha_y,
                  bias=model.bias, kind=model.kind, degree=model.degree,

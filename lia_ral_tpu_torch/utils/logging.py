@@ -99,11 +99,17 @@ counters = {name: 0 for name in (
     "lia.svm.dual_steps",       # FISTA steps times N², summed over solves
     "lia.svm.dual_step_vectors",  # FISTA steps times N, summed over solves
     "lia.svm.support",          # support vectors the models keep
-    "lia.svm.h2d_bytes",        # bytes handed to the device: y and the bounds
-                                # C of each solve, the support vectors and
-                                # α·y of each SvmModel.decision call
-    "lia.svm.d2h_bytes",        # bytes svm_train reads to the host: X, α, the
-                                # kernel matrix and the mean it translates by
+    "lia.svm.h2d_bytes",        # bytes copied from the host to a card: y of
+                                # each solve from host memory, the support
+                                # rows and α·y of a host-held model (one
+                                # loaded from a file) in each decision
+    "lia.svm.d2h_bytes",        # bytes read from a card to the host: each
+                                # solve's support count and bias (16), a
+                                # card-held model's rows scoring host rows
+                                # or read by SvmModel.host
+    "lia.svm.host_syncs",       # blocking host reads in svm_train (one a
+                                # solve, on any device), in decision and
+                                # in SvmModel.host
 )}
 _counter_lock = threading.Lock()    # the shards of a mesh run in threads
 _NO_SPAN = contextlib.nullcontext()

@@ -958,6 +958,22 @@ def test_svm_train_runs_the_kernel_once(cuda_device, monkeypatch):
     assert dec[:5].min() > dec[5:].max()
 
 
+def _raw_supervectors(device):
+    """Supervector-like vectors with a large common part (a shared mean,
+    speaker and rank-64 channel offsets of 5 % of its norm): a target's
+    side and 4,095 sides of other speakers, N = 4,096; y."""
+    g = torch.Generator(device=device).manual_seed(20)
+    d, rank, scale = 8192, 64, 0.05 / 2 ** 0.5
+    mean = torch.randn(d, generator=g, device=device)
+    spk = torch.randn(1366, d, generator=g, device=device) * scale
+    chan = (torch.randn(rank, d, generator=g, device=device)
+            * (scale / rank ** 0.5))
+    x = (mean + spk.repeat_interleave(3, 0)
+         + torch.randn(3 * 1366, rank, generator=g, device=device) @ chan)
+    x = torch.cat([x[1:2], x[3:]])        # a target's side, other speakers
+    return x, np.r_[1.0, -np.ones(x.shape[0] - 1)].astype(np.float32)
+
+
 def test_svm_train_reaches_the_optimum_on_raw_supervectors(cuda_device):
     """svm_train on supervector-like vectors with a large common part (a
     shared mean, speaker and rank-64 channel offsets of 5 % of its norm;
@@ -974,20 +990,10 @@ def test_svm_train_reaches_the_optimum_on_raw_supervectors(cuda_device):
                          / "gmm_svm_nap_campbell2006.enrol_1conv.json"
                          ).read_text())["limits"]
     limit = limits["w_gap_rel"]
-    g = torch.Generator(device=cuda_device).manual_seed(20)
-    d, rank, scale = 8192, 64, 0.05 / 2 ** 0.5
-    mean = torch.randn(d, generator=g, device=cuda_device)
-    spk = torch.randn(1366, d, generator=g, device=cuda_device) * scale
-    chan = (torch.randn(rank, d, generator=g, device=cuda_device)
-            * (scale / rank ** 0.5))
-    x = (mean + spk.repeat_interleave(3, 0)
-         + torch.randn(3 * 1366, rank, generator=g, device=cuda_device)
-         @ chan)
-    x = torch.cat([x[1:2], x[3:]])        # a target's side, other speakers
+    x, y = _raw_supervectors(cuda_device)
     n = x.shape[0]
     assert n == 4096 and svm.solve_plan(n, svm.card_max_cluster()).regime \
         == "streaming"
-    y = np.r_[1.0, -np.ones(n - 1)].astype(np.float32)
     before = svm.launch_counts["svm_dual"]
     model = svm.svm_train(x, y)
     assert svm.launch_counts["svm_dual"] == before + 1
@@ -1008,6 +1014,77 @@ def test_svm_train_reaches_the_optimum_on_raw_supervectors(cuda_device):
     want = x[:64].double() @ w_ref[0] + b_ref[0]
     gap = float((scores - want).abs().max() / want.std())
     assert gap <= limits["score_gap"], gap
+
+
+def test_svm_train_keeps_its_model_on_the_card(cuda_device, monkeypatch,
+                                               tmp_path):
+    """svm_train at N = 4,096 (the streaming plan): the model's support
+    rows and α·y stay CUDA tensors; under a profiler the solve reads 16
+    bytes back (the support count and the bias, its one host sync), hands
+    the card y alone, and makes one synchronising call; its support set,
+    α·y and bias are the host formulas' (``tests/_svm_host_model.py``) on
+    host copies of that solve's α and K; ``SvmModel.host`` reads it into
+    numpy arrays, whose decisions equal the card model's."""
+    import warnings
+
+    from lia_ral_tpu_torch.backend import svm
+    from lia_ral_tpu_torch.utils import logging as tlog
+
+    from _svm_host_model import default_c64, host_model
+
+    x, y = _raw_supervectors(cuda_device)
+    n = x.shape[0]
+    svm.svm_train(x, y)                              # warm
+    seen = []
+    inner = svm._dual_solve
+
+    def recorded(k, yt, c_vec, n_iter=500):
+        alpha = inner(k, yt, c_vec, n_iter)
+        seen.append((k, yt, c_vec, alpha))
+        return alpha
+    monkeypatch.setattr(svm, "_dual_solve", recorded)
+    with tlog.profile_trace(str(tmp_path / "tr")):
+        model = svm.svm_train(x, y)
+    counted = json.loads((tmp_path / "tr" / "counters.json").read_text())
+    assert counted["lia.svm.host_syncs"] == 1
+    assert counted["lia.svm.d2h_bytes"] == 16
+    assert counted["lia.svm.h2d_bytes"] == 4 * n
+    for t in (model.support, model.alpha_y):
+        assert isinstance(t, torch.Tensor) and t.device == x.device
+    assert isinstance(model.bias, float)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            svm.svm_train(x, y)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+
+    k, yt, c_vec, alpha = (t.cpu().numpy() for t in seen[0])
+    x_np = x.cpu().numpy()
+    c = default_c64(x_np)
+    np.testing.assert_array_equal(yt, y)
+    np.testing.assert_allclose(c_vec, np.float32(c), rtol=1.2e-7, atol=0)
+    support, alpha_y, bias, margin = host_model(
+        x_np, y, alpha, k, c_vec, c, x.mean(dim=0).cpu().numpy())
+    assert 0 < margin < len(support) < n
+    np.testing.assert_array_equal(model.support.cpu().numpy(), support)
+    np.testing.assert_allclose(model.alpha_y.cpu().numpy(), alpha_y,
+                               rtol=1e-12, atol=0)
+    scale = float(np.abs(alpha_y).sum()) * (
+        np.abs(k).max() + np.abs(x_np).max() * np.abs(x_np).sum(1).max())
+    assert abs(model.bias - bias) <= 1e-13 * scale, (model.bias, bias)
+
+    host = model.host()
+    for key in ("support", "alpha_y"):
+        assert type(getattr(host, key)) is np.ndarray
+        np.testing.assert_array_equal(getattr(host, key),
+                                      getattr(model, key).cpu().numpy())
+    assert torch.equal(model.decision(x[:64]), host.decision(x[:64]))
 
 
 def test_svm_dual_cuda_rejects_bad_inputs(cuda_device):

@@ -81,19 +81,18 @@ def test_counters_equal_their_closed_forms_and_spans_nest(tmp_path):
     solves = [(n, kind, m) for n, kind, m, _ in traced[:3]]
     ns = [n for n, _, _ in solves]
     sv = [m.support.shape[0] for _, _, m in solves]
-    linear = sum(kind == "linear" for _, kind, _ in solves)
     assert counted["lia.svm.solves"] == 3
     assert counted["lia.svm.vectors"] == sum(ns)
     assert counted["lia.svm.q_entries"] == sum(n * n for n in ns)
     assert counted["lia.svm.dual_steps"] == STEPS * sum(n * n for n in ns)
     assert counted["lia.svm.dual_step_vectors"] == STEPS * sum(ns)
     assert counted["lia.svm.support"] == sum(sv)
-    # y and C of each solve in; each decision's support vectors and α·y
-    assert counted["lia.svm.h2d_bytes"] == 4 * (
-        sum(2 * n for n in ns) + sum(s * (D + 1) for s in sv))
-    # X, α and K of each solve out; the mean of each linear one
-    assert counted["lia.svm.d2h_bytes"] == 4 * (
-        sum(n * D + n + n * n for n in ns) + linear * D)
+    # off the card nothing crosses between host and card: y, C and the
+    # model stay on the CPU, and so do the decisions' support rows
+    assert counted["lia.svm.h2d_bytes"] == 0
+    assert counted["lia.svm.d2h_bytes"] == 0
+    # one read of the support count and the bias a solve; none a decision
+    assert counted["lia.svm.host_syncs"] == len(solves)
     assert set(SVM) <= set(counted)
 
     ranges = _ranges(tmp_path / "tr")
@@ -102,8 +101,8 @@ def test_counters_equal_their_closed_forms_and_spans_nest(tmp_path):
         return [r for r in ranges if r[0] == name]
     trains = named("lia.svm.train")
     assert len(trains) == 3
-    for child, per in (("lia.svm.gram", 1), ("lia.svm.dual", 1),
-                       ("lia.svm.host", 2)):
+    for child, per in (("lia.svm.bounds", 1), ("lia.svm.gram", 1),
+                       ("lia.svm.dual", 1), ("lia.svm.model", 1)):
         assert len(named(child)) == per * len(trains), child
         assert all(_inside(r, trains) for r in named(child)), child
     assert len(named("lia.svm.decision")) == 3
@@ -115,4 +114,5 @@ def test_every_svm_counter_is_listed():
     assert set(SVM) == {"lia.svm.solves", "lia.svm.vectors",
                         "lia.svm.q_entries", "lia.svm.dual_steps",
                         "lia.svm.dual_step_vectors", "lia.svm.support",
-                        "lia.svm.h2d_bytes", "lia.svm.d2h_bytes"}
+                        "lia.svm.h2d_bytes", "lia.svm.d2h_bytes",
+                        "lia.svm.host_syncs"}
