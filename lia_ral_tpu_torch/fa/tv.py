@@ -166,68 +166,88 @@ def tv_e_step(stats: BwStats, model: TvModel, chunk: int = 64
     """Full E-step over all utterances, ``chunk`` speakers at a time; the
     last chunk is padded with zero-occupancy speakers, which give w = 0
     and are masked out of the accumulators.  Returns (w (S,R), accums).
-    Reference estimateAandC (cpp:1691-1800)."""
-    s, k = stats.n.shape
-    d, r = model.dim, model.rank
-    dev = stats.n.device
-    tett = estimate_tett(model)
-    tn_flat = _tn_flat(model)
-    fbar = stats.centered(model.ubm_means)                  # (S,K,D)
-    pad = (-s) % chunk
-    n_p = torch.cat([stats.n, stats.n.new_zeros((pad, k))])
-    f_p = torch.cat([fbar, fbar.new_zeros((pad, k, d))])
-    valid = torch.cat([torch.ones(s, device=dev),
-                       torch.zeros(pad, device=dev)])
-    acc = TvAccums.zeros(r, k, d, device=dev)
-    ws = []
-    for s0 in range(0, s + pad, chunk):
-        n_blk, f_blk = n_p[s0:s0 + chunk], f_p[s0:s0 + chunk]
-        v_blk = valid[s0:s0 + chunk]
-        w, linv = _posterior(n_blk, f_blk, model, tett, tn_flat)
-        w = w * v_blk[:, None]                              # zero padding
-        cov = (linv + w[:, :, None] * w[:, None, :]) * v_blk[:, None, None]
-        acc = TvAccums(
-            a=acc.a + (n_blk.T @ cov.reshape(chunk, r * r)).reshape(k, r, r),
-            c=acc.c + (w.T @ f_blk.reshape(chunk, k * d)).reshape(r, k, d),
-            r_mat=acc.r_mat + torch.sum(cov, dim=0),
-            r_vec=acc.r_vec + torch.sum(w, dim=0),
-            n_utts=acc.n_utts + torch.sum(v_blk))
-        ws.append(w)
-    return torch.cat(ws)[:s], acc
+    Reference estimateAandC (cpp:1691-1800).
+
+    Traced: span ``lia.tv.e_step`` ⊃ one ``lia.tv.e_chunk`` a chunk (its
+    posterior and accumulation); counters ``lia.tv.e_chunks``,
+    ``lia.tv.e_sessions`` (S) and ``lia.tv.e_pad_sessions`` (the
+    padding)."""
+    with span("lia.tv.e_step"):
+        s, k = stats.n.shape
+        d, r = model.dim, model.rank
+        dev = stats.n.device
+        tett = estimate_tett(model)
+        tn_flat = _tn_flat(model)
+        fbar = stats.centered(model.ubm_means)              # (S,K,D)
+        pad = (-s) % chunk
+        count("lia.tv.e_chunks", (s + pad) // chunk)
+        count("lia.tv.e_sessions", s)
+        count("lia.tv.e_pad_sessions", pad)
+        n_p = torch.cat([stats.n, stats.n.new_zeros((pad, k))])
+        f_p = torch.cat([fbar, fbar.new_zeros((pad, k, d))])
+        valid = torch.cat([torch.ones(s, device=dev),
+                           torch.zeros(pad, device=dev)])
+        acc = TvAccums.zeros(r, k, d, device=dev)
+        ws = []
+        for s0 in range(0, s + pad, chunk):
+            with span("lia.tv.e_chunk"):
+                n_blk, f_blk = n_p[s0:s0 + chunk], f_p[s0:s0 + chunk]
+                v_blk = valid[s0:s0 + chunk]
+                w, linv = _posterior(n_blk, f_blk, model, tett, tn_flat)
+                w = w * v_blk[:, None]                      # zero padding
+                cov = ((linv + w[:, :, None] * w[:, None, :])
+                       * v_blk[:, None, None])
+                acc = TvAccums(
+                    a=acc.a + (n_blk.T @ cov.reshape(chunk, r * r)
+                               ).reshape(k, r, r),
+                    c=acc.c + (w.T @ f_blk.reshape(chunk, k * d)
+                               ).reshape(r, k, d),
+                    r_mat=acc.r_mat + torch.sum(cov, dim=0),
+                    r_vec=acc.r_vec + torch.sum(w, dim=0),
+                    n_utts=acc.n_utts + torch.sum(v_blk))
+                ws.append(w)
+        return torch.cat(ws)[:s], acc
 
 
 def tv_m_step(model: TvModel, acc: TvAccums) -> TvModel:
     """T_c = A_c⁻¹ C_c per component — reference updateTestimate
-    (cpp:974-1005), one batched solve over the component axis."""
-    t_new = torch.linalg.solve(acc.a, acc.c.permute(1, 0, 2))  # (K,R,D)
-    return model.replace(t=t_new.permute(1, 0, 2).contiguous())
+    (cpp:974-1005), one batched solve over the component axis (span
+    ``lia.tv.m_step``)."""
+    with span("lia.tv.m_step"):
+        t_new = torch.linalg.solve(acc.a, acc.c.permute(1, 0, 2))  # (K,R,D)
+        return model.replace(t=t_new.permute(1, 0, 2).contiguous())
 
 
 def min_divergence(model: TvModel, acc: TvAccums) -> TvModel:
     """Minimum-divergence step (reference minDivergence, cpp:2056-2101):
     whiten T by the empirical i-vector covariance, fold the i-vector mean
-    into the UBM means."""
-    n = torch.clamp(acc.n_utts, min=1.0)
-    r_bar = acc.r_vec / n
-    r_cov = acc.r_mat / n - r_bar[:, None] * r_bar[None, :]
-    # mean update BEFORE rotation (reference order): m += meanWᵀ·T
-    new_means = model.ubm_means + torch.einsum("r,rkd->kd", r_bar, model.t)
-    chol_l = torch.linalg.cholesky(r_cov)                   # R = L·Lᵀ
-    # T ← Lᵀ·T  (reference Ch upper with R = ChᵀCh, T ← Ch·T)
-    t_new = torch.einsum("rq,rkd->qkd", chol_l, model.t)
-    return model.replace(t=t_new, ubm_means=new_means)
+    into the UBM means (span ``lia.tv.min_div``)."""
+    with span("lia.tv.min_div"):
+        n = torch.clamp(acc.n_utts, min=1.0)
+        r_bar = acc.r_vec / n
+        r_cov = acc.r_mat / n - r_bar[:, None] * r_bar[None, :]
+        # mean update BEFORE rotation (reference order): m += meanWᵀ·T
+        new_means = model.ubm_means + torch.einsum("r,rkd->kd", r_bar,
+                                                   model.t)
+        chol_l = torch.linalg.cholesky(r_cov)               # R = L·Lᵀ
+        # T ← Lᵀ·T  (reference Ch upper with R = ChᵀCh, T ← Ch·T)
+        t_new = torch.einsum("rq,rkd->qkd", chol_l, model.t)
+        return model.replace(t=t_new, ubm_means=new_means)
 
 
 def tv_em_iteration(stats: BwStats, model: TvModel, chunk: int = 64,
                     min_div: bool = True) -> tuple[TvModel, torch.Tensor]:
     """One full T-matrix EM iteration (reference TotalVariability.cpp
-    117-168 loop body).  Returns (new model, i-vectors of this iteration).
+    117-168 loop body; span ``lia.tv.em_iteration`` around the E-step,
+    the M-step and the minimum divergence).  Returns (new model,
+    i-vectors of this iteration).
     """
-    w, acc = tv_e_step(stats, model, chunk=chunk)
-    new_model = tv_m_step(model, acc)
-    if min_div:
-        new_model = min_divergence(new_model, acc)
-    return new_model, w
+    with span("lia.tv.em_iteration"):
+        w, acc = tv_e_step(stats, model, chunk=chunk)
+        new_model = tv_m_step(model, acc)
+        if min_div:
+            new_model = min_divergence(new_model, acc)
+        return new_model, w
 
 
 def _pcg_basis(model: TvModel, n_ref: torch.Tensor):

@@ -71,6 +71,10 @@ counters = {name: 0 for name in (
     "lia.tv.blocks",            # solve blocks of fa.tv.estimate_w
     "lia.tv.pcg_iters",         # PCG iterations run, summed over blocks
     "lia.tv.host_syncs",        # host reads of a device value in estimate_w
+    "lia.tv.e_chunks",          # session chunks of fa.tv.tv_e_step
+    "lia.tv.e_sessions",        # their real sessions
+    "lia.tv.e_pad_sessions",    # zero-occupancy sessions that pad its last
+                                # chunk
     "lia.seg.decodes",          # decodes of seg.diarization's E-HMM and
                                 # ReSegmentation (emissions, then Viterbi)
     "lia.seg.viterbi_frames",   # their frames, summed over decodes

@@ -1232,3 +1232,107 @@ def test_svm_dual_cuda_card_runs_the_largest_cluster(cuda_device):
     assert svm.card_max_cluster() == svm.MAX_CLUSTER
     assert svm.solve_plan(svm.MAX_VECTORS, svm.card_max_cluster()).threads \
         <= svm.MAX_THREADS
+
+
+def _tv_statistics(device, sessions=4096, k=2048, d=60, r=400,
+                   frames=15000):
+    """A UBM and (N, F) of ``sessions`` sessions of ``frames`` frames at
+    the TV cell's widths, drawn directly: occupancies spread around the
+    UBM's weights, first-order sums around each session's means moved by
+    its supervector shift T_genᵀw (0.5 of the UBM's σ)."""
+    from lia_ral_tpu_torch.fa.stats import BwStats
+    from lia_ral_tpu_torch.gmm.model import GmmDiag
+
+    g = torch.Generator(device=device).manual_seed(22)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device=device)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+    ww = rand(k) + 0.5
+    ww = ww / ww.sum()
+    wm, wv = randn(k, d) * 0.37, rand(k, d) + 0.5
+    t_gen = randn(r, k, d) * (0.5 / r ** 0.5) * wv.sqrt()
+    occ = ww * (0.5 + rand(sessions, k))
+    n = frames * occ / occ.sum(1, keepdim=True)
+    shift = (randn(sessions, r) @ t_gen.reshape(r, -1)).reshape(-1, k, d)
+    f = (n[..., None] * (wm + shift)
+         + n.sqrt()[..., None] * wv.sqrt() * randn(sessions, k, d))
+    return (GmmDiag(weights=ww, means=wm, cov_inv=1.0 / wv), wv,
+            BwStats(n=n, f=f))
+
+
+def _tv_limits():
+    return json.loads((Path(__file__).resolve().parent.parent
+                       / "benchmark" / "workloads"
+                       / "ivec_dehak2011.tv_train.json").read_text())["limits"]
+
+
+def _tv_gaps(t, means, w, want, weights, var):
+    """The TV cell's three checks of (T, means, w) against ``want``."""
+    t_ref, m_ref, w_ref = want
+    dt = t.double() - t_ref
+    return {
+        "t_gap_rel": float((dt.square().sum((0, 2)).sqrt()
+                            / t_ref.square().sum((0, 2)).sqrt()).max()),
+        "tv_mean_gap_sigma_w": float((weights.double()
+                                      * ((means.double() - m_ref).abs()
+                                         / var.double().sqrt()).amax(1)
+                                      ).sum()),
+        "ivector_gap_rel": float(((w.double() - w_ref).norm(dim=1)
+                                  / w_ref.norm(dim=1)).max()),
+    }
+
+
+def _tv_chained_gaps(device, sessions):
+    """Two chained ``tv_em_iteration`` calls (``speakerChunk`` 64, minimum
+    divergence) at K = 2,048, D = 60, R = 400 from ``init_t`` at 0.001;
+    for each, the gaps of the port and of ``tests/plain_ref/tv_em.py`` in
+    float32 (TF32 off) to the reference in float64, all three from the
+    call's input model."""
+    from lia_ral_tpu_torch.fa import tv
+    from plain_ref import tv_em as ref
+
+    gmm, var, stats = _tv_statistics(device, sessions=sessions)
+    model = tv.init_t(torch.Generator(device=device).manual_seed(1),
+                      400, gmm, scale=0.001)
+    out_gaps = []
+    for _ in range(2):
+        out, w = tv.tv_em_iteration(stats, model, chunk=64, min_div=True)
+        want = ref.em_iteration(stats.n, stats.f, model.t.double(),
+                                model.ubm_means.double(), var.double())
+        f32 = ref.em_iteration(stats.n, stats.f, model.t.float(),
+                               model.ubm_means.float(), var.float())
+        out_gaps.append((_tv_gaps(out.t, out.ubm_means, w, want,
+                                  gmm.weights, var),
+                         _tv_gaps(*f32, want, gmm.weights, var)))
+        model = out
+    return out_gaps
+
+
+def test_tv_em_iteration_matches_the_float64_reference(cuda_device):
+    """At 4,096 sessions' statistics the port is within the TV cell's
+    limits (read from its workload file) of the float64 reference after
+    each of two chained passes: T after the pass, the means, each
+    session's i-vector."""
+    limits = _tv_limits()
+    for port, _ in _tv_chained_gaps(cuda_device, 4096):
+        for name, gap in port.items():
+            assert gap <= limits[name], (name, gap)
+
+
+def test_tv_em_iteration_with_fewer_sessions_than_rank_is_float32s_equal(
+        cuda_device):
+    """At 128 sessions, fewer than R = 400, the first M-step's T spans only
+    the sessions' i-vectors (C = Σ w F̄ᵀ has rank S), so the second pass's
+    L_s has R − S eigenvalues of 1 beside very large ones and float32
+    itself moves T and the i-vectors far more than at the cell's size.
+    Each of the port's gaps to the float64 reference stays within the
+    cell's limit or within 4× the float32 reference's own gap (TF32 off)
+    from the same input model."""
+    limits = _tv_limits()
+    for port, f32 in _tv_chained_gaps(cuda_device, 128):
+        for name, gap in port.items():
+            assert gap <= max(limits[name], 4 * f32[name]), \
+                (name, gap, f32[name])
